@@ -4,21 +4,34 @@
     python3 chip_smoke.py [--seed N] [--queries N]
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-kernels from the sources in the checkout, holds kernel K1 (csrc/rank.cu)
-bit-equal to its plain PyTorch version on the card, then drives the port's
-main path through its CLI at the size of a bacterial re-sequencing run:
-`build` of 30x error-free 100 bp reads of a random 4,641,652 bp genome (the
-length of E. coli K-12 MG1655; about 281 Msym of index), `unpack` of 1,000
-ids, and `exact` of 100,000 reads with 1% substitutions.  The first 512
-queries are searched again on the CPU (the plain versions) and must give
-the same SMEM tuples bit for bit.
+kernels and native engines from the sources in the checkout (all compilers
+at once), holds kernels K1 (csrc/rank.cu) and K2 (csrc/sw.cu) bit-equal to
+their plain PyTorch versions on the card, then drives the port's paths
+through their entry points at the size of a bacterial re-sequencing run of
+a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
+100 bp reads:
 
-A last phase profiles one 4,096-read `exact` batch (device busy and idle
-share, device time by kernel).
+- K2's entry `sw_score_batch` on 65,536 alignment pairs (and one pair whose
+  target is longer than a warp pass of the kernel);
+- `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
+  ids, and `exact` of 100,000 reads with 1% substitutions; the first 512
+  queries are searched again on the CPU and must give the same SMEM tuples;
+  then one 4,096-read `exact` batch is profiled (device busy and idle share,
+  device time by kernel);
+- `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
+  of all of them, then of the first 262,144 with the host fix and with the
+  device fix, whose outputs must be byte-equal; the corrected reads are
+  compared with the known genome;
+- `build` of the corrected reads and `seqsort`, whose .rank array must be a
+  permutation;
+- the collect and seqsort of a 100 kbp window of the reads on the card and
+  on the CPU (the plain versions), which must be equal.
 
-Every phase prints one line; then a JSON line of the kernels, the card's
-name and power limit, and last `{"ok": true, "device": {...}}`.  Any failure
-raises and exits non-zero; so does a machine without CUDA.
+Every launch counter is set to 0 just before each path and read just after
+it; a path that launched none of its kernels fails.  Every phase prints one
+line; then a JSON line of the kernels, the card's name and power limit, and
+last `{"ok": true, "device": {...}}`.  Any failure raises and exits
+non-zero; so does a machine without CUDA.
 """
 
 import argparse
@@ -26,6 +39,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,9 +53,43 @@ READ_LEN = 100
 N_READS = 1_392_496             # 30x
 N_UNPACK = 1000
 N_CROSS = 512
+N_SW_PAIRS = 65_536
+N_FIX_SUB = 262_144             # reads of the host-vs-device fix rerun
+CROSS_WINDOW = 100_000          # genome bp whose reads the CPU re-checks
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_OPS_PER_S = 67e12          # 32-bit non-tensor rate (fp32 data sheet)
-K1_OPS_PER_QUERY = 16 * (6 * 10 + 5)   # per word: mask + 6 x SWAR count
+H100_SMS = 132
+# Results per clock per SM for compute capability 9.0 (NVIDIA's CUDA C++
+# documentation, arithmetic instruction throughput table): 32-bit integer
+# logic, shift, compare, select and min/max 64, on the integer pipe;
+# population count 16, on its own pipe.  Adds and left shifts run on the
+# integer pipe or, as IMAD, on the FMA pipe (64 more).  The four schedulers
+# of an SM dispatch at most 128 thread instructions per clock in all.
+RATE_PER_CLK = {"alu": 64, "popc": 16}
+DISPATCH_PER_CLK = 128
+# The integer operations each kernel's function needs, counted once from
+# its arithmetic (the compiled kernels do more: `cuobjdump -sass` on a built
+# library shows what), by class: "alu" on the integer pipe only (logic,
+# right shift, compare, select, max, and Hopper's DPX fused add-max and
+# 3-way max, one instruction each, priced at the integer pipe's rate);
+# "add" on the integer or the FMA pipe; "popc".
+#
+# K1, per 8-symbol word below the query's offset, a bit-plane count: the
+# three planes (2 shifts, 3 ANDs), one 3-input logic op for each of the
+# symbols 1-5 and the pad 6 (symbol 0 is what is left), 6 popcounts and 6
+# adds into the counts.
+K1_OPS_PER_WORD = {"alu": 11, "add": 6, "popc": 6}
+# K1, per query: block and offset of the key (shift, AND), the partial
+# word's mask (AND, shift, AND; 2 adds), the row's address (1 add), symbol
+# 0's count (the offset less the other six: 6 adds), the six occ counts
+# added (6 adds; 12 for int64 keys, two halves each).
+K1_OPS_PER_QUERY = {"alu": 5, "add": 15, "popc": 0}
+# K2, per alignment cell (i, j), the Gotoh recurrence:
+#   s = t[j] == q[i] ? match : mismatch          compare, select
+#   o = H[i][j] - (gapo + gape)                   add (feeds E below, F right)
+#   E = max(E - gape, o), F = max(F - gape, o)    2 DPX add-max
+#   H = max(H[i-1][j-1] + s, E, F, 0)             add, DPX 3-way max with 0
+#   best = max(best, H)                           max
+K2_OPS_PER_CELL = {"alu": 6, "add": 2, "popc": 0}
 
 
 def log(tag, **kv):
@@ -80,23 +128,48 @@ def random_rows(rng, n):
     return words.view(np.int32)
 
 
-def bound_ms(nbytes, n_queries):
-    """Least time on the card for K1 over n_queries: the bytes it must move
-    against the HBM rate, its SWAR operations against the ALU rate; the
-    larger, in ms, and which of the two it is."""
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def bound_ms(nbytes, ops, clock_hz):
+    """Least time on the card for a kernel's work: the bytes it must move
+    against the HBM rate, and its operations (`ops`: totals by class) on
+    the card's SMs at their max clock, where the integer pipe, the popcount
+    pipe or the dispatch of all of them sets the pace; the larger of the
+    two, in ms, and which it is."""
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = n_queries * K1_OPS_PER_QUERY / H100_OPS_PER_S
+    clocks = max(ops["alu"] / RATE_PER_CLK["alu"],
+                 ops["popc"] / RATE_PER_CLK["popc"],
+                 sum(ops.values()) / DISPATCH_PER_CLK)
+    t_ops = clocks / (H100_SMS * clock_hz)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def fused_bound_ms(k):
+def k1_ops(off, wide=False):
+    """The operations K1's function needs for queries of prefix lengths
+    `off` (a tensor): the words below each offset, and each query's own."""
+    words = int(((off.long() + 7) >> 3).sum())
+    n = off.numel()
+    ops = {c: K1_OPS_PER_WORD[c] * words + K1_OPS_PER_QUERY[c] * n
+           for c in K1_OPS_PER_WORD}
+    ops["add"] += 6 * n if wide else 0
+    return ops
+
+
+def fused_bound_ms(k, clock_hz):
     """rank6_fused on keys k: each touched 96 B row read once, each key
     read and its six counts written once."""
     rows = torch.unique(k.long() >> 7).numel()
-    return bound_ms(rows * 96 + k.numel() * k.element_size() * 7, k.numel())
+    return bound_ms(rows * 96 + k.numel() * k.element_size() * 7,
+                    k1_ops(k.long() & 127, k.dtype == torch.int64), clock_hz)
 
 
-def k1_parity(rng, dev, n=1 << 20):
+def k1_parity(rng, dev, clock_hz, n=1 << 20):
     """Both K1 entry points against the plain version on the card, on n
     random rows; keys cover every offset, occ patterns >= 2^31 in the int64
     domain.  Returns the largest absolute difference (must be 0)."""
@@ -111,7 +184,7 @@ def k1_parity(rng, dev, n=1 << 20):
     out = {"rank_block_counts": (
         time_ms(lambda: rc.rank_block_counts(words, off)),
         time_ms(lambda: rc.rank_block_counts_plain(words, off)),
-        bound_ms(n * (64 + 4 + 32), n)[0])}
+        bound_ms(n * (64 + 4 + 32), k1_ops(off), clock_hz)[0])}
     fused = torch.zeros((n, 24), dtype=torch.int32, device=dev)
     fused[:, :16] = words
     for name, dt, occ_hi in (("int32", torch.int32, 2**31 - 2**20),
@@ -132,7 +205,7 @@ def k1_parity(rng, dev, n=1 << 20):
         out[f"rank6_fused_{name}"] = (
             time_ms(lambda: rc.rank6_fused(fused, kt)),
             time_ms(lambda: rc.rank6_fused_plain(fused, kt)),
-            fused_bound_ms(kt)[0])
+            fused_bound_ms(kt, clock_hz)[0])
     torch.cuda.synchronize()
     times = {}
     for name, (ms, plain, bound) in out.items():
@@ -148,7 +221,8 @@ def k1_parity(rng, dev, n=1 << 20):
 def make_data(rng, workdir, genome_len, n_reads, n_queries):
     """Random genome, error-free reads (half reverse-complemented) as the
     index input, and queries with 1% substitutions (the recipe of
-    bench.py's make_dataset), both as FASTA.  Returns paths and the reads."""
+    bench.py's make_dataset), both as FASTA.  Returns the paths, the reads
+    and the genome."""
     genome = rng.integers(0, 4, genome_len).astype(np.int8)
 
     def sample(n, err):
@@ -177,11 +251,12 @@ def make_data(rng, workdir, genome_len, n_reads, n_queries):
     q_fa = os.path.join(workdir, "q.fa")
     reads = write(reads_fa, sample(n_reads, 0.0))
     write(q_fa, sample(n_queries, 0.01))
-    return reads_fa, q_fa, reads
+    return reads_fa, q_fa, reads, genome
 
 
 def run_cli(argv, out_path=None):
-    """The port's CLI in-process; stdout to out_path (or captured)."""
+    """The port's CLI in-process; stdout to out_path (or captured).
+    Returns (seconds, stdout text or None, stderr text)."""
     from fermi_tpu_torch.cli.main import main
 
     t0 = time.perf_counter()
@@ -199,7 +274,22 @@ def run_cli(argv, out_path=None):
         torch.cuda.synchronize()
     if rc != 0:
         raise RuntimeError(f"fermi_tpu_torch {' '.join(argv)} exited {rc}")
-    return time.perf_counter() - t0, text
+    return time.perf_counter() - t0, text, err.getvalue()
+
+
+def reset_launches():
+    """Every kernel launch counter to 0."""
+    from fermi_tpu_torch.ops import rank_cuda, sw_cuda
+
+    for counts in (rank_cuda.LAUNCHES, sw_cuda.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def launches():
+    from fermi_tpu_torch.ops import rank_cuda, sw_cuda
+
+    return {**rank_cuda.LAUNCHES, **sw_cuda.LAUNCHES}
 
 
 def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
@@ -210,21 +300,20 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     from fermi_tpu_torch.search import smem as sm
 
     t0 = time.perf_counter()
-    reads_fa, q_fa, reads = make_data(rng, workdir, genome_len, n_reads,
-                                      n_queries)
+    reads_fa, q_fa, reads, genome = make_data(rng, workdir, genome_len,
+                                              n_reads, n_queries)
     log("data", genome_bp=genome_len, reads=n_reads, queries=n_queries,
         seconds=time.perf_counter() - t0)
     dv = ["--device", str(dev)]
     on_card = dev.type == "cuda"
-    for key in rc.LAUNCHES:
-        rc.LAUNCHES[key] = 0
+    reset_launches()
     sm.STATS.update(reads=0, redo=0, maxi=None)
 
     # build: the BWT is sorted on the device
     fmd = os.path.join(workdir, "idx.fmd")
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    t_build, _ = run_cli(["build", *dv, "-fo", fmd, reads_fa])
+    t_build, _, _ = run_cli(["build", *dv, "-fo", fmd, reads_fa])
     runs = rld.read_fmd(fmd)
     n_sym = runs.total
     peak_build = torch.cuda.max_memory_allocated() if on_card else 0
@@ -240,7 +329,7 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     # complement when x is odd)
     ids = np.sort(rng.choice(2 * n_reads, N_UNPACK, replace=False))
     before = dict(rc.LAUNCHES)
-    t_unpack, text = run_cli(["unpack", *dv,
+    t_unpack, text, _ = run_cli(["unpack", *dv,
                               *[a for x in ids for a in ("-i", str(x))], fmd])
     lines = text.splitlines()
     if len(lines) != N_UNPACK:
@@ -259,7 +348,7 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     before = dict(rc.LAUNCHES)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    t_exact, _ = run_cli(["exact", *dv, fmd, q_fa], out_path)
+    t_exact, _, _ = run_cli(["exact", *dv, fmd, q_fa], out_path)
     k1_exact = rc.LAUNCHES["rank6_fused"] - before["rank6_fused"]
     with open(out_path) as f:
         exact_text = f.read()
@@ -273,11 +362,11 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
         k1_launches=k1_exact,
         device_peak_gb=(torch.cuda.max_memory_allocated() / 2**30
                         if on_card else 0))
-    launches = dict(rc.LAUNCHES)
+    counts = launches()
     if on_card and (k1_unpack <= 0 or k1_exact <= 0):
         raise AssertionError("a query phase did not launch K1 on the card")
-    return dict(fmd=fmd, q_fa=q_fa, exact_text=exact_text,
-                launches=launches, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI)
+    return dict(fmd=fmd, q_fa=q_fa, exact_text=exact_text, genome=genome,
+                launches=counts, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI)
 
 
 def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS):
@@ -317,7 +406,7 @@ def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS):
     return gidx
 
 
-def k1_at_main_path_shape(idx, maxi, rng):
+def k1_at_main_path_shape(idx, maxi, rng, clock_hz):
     """K1 at the shape of one SMEM loop step: lanes x 2 x maxi keys over the
     index's own fused rows, kernel against plain version on the card."""
     from fermi_tpu_torch.ops import rank_cuda as rc
@@ -331,7 +420,7 @@ def k1_at_main_path_shape(idx, maxi, rng):
               .abs().max())
     ms = time_ms(lambda: rc.rank6_fused(idx.fused, k))
     plain_ms = time_ms(lambda: rc.rank6_fused_plain(idx.fused, k))
-    bound, by = fused_bound_ms(k)
+    bound, by = fused_bound_ms(k, clock_hz)
     log("k1_main_shape", keys=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by)
     if err:
@@ -388,6 +477,241 @@ def profile_exact(idx, q_fa, lo=N_CROSS, n=4096):
         top_device_us={k[:60]: v for k, v in top})
 
 
+def sw_pairs(rng, n):
+    """n alignment pairs by the recipe of tests/test_sw_pallas.py scaled
+    up: query 1-256 bp, target 1-512 bp, half of the pairs overlapping (the
+    target holds a copy of the query with up to 5 substitutions); the last
+    pair is a 300 bp query inside a 6,000 bp target, longer than a warp
+    pass of the kernel (its score is 1,500)."""
+    qlen = rng.integers(1, 257, n)
+    tlen = rng.integers(1, 513, n)
+    overlap = rng.random(n) < 0.5
+    qs, ts = [], []
+    for i in range(n - 1):
+        q = rng.integers(0, 4, qlen[i]).astype(np.int8)
+        if overlap[i]:
+            t = q.copy()
+            nsub = int(rng.integers(0, 6))
+            t[rng.integers(0, qlen[i], nsub)] = rng.integers(0, 4, nsub)
+            t = np.concatenate([t, rng.integers(0, 4, max(0, tlen[i] - qlen[i]))
+                                .astype(np.int8)])
+        else:
+            t = rng.integers(0, 4, tlen[i]).astype(np.int8)
+        qs.append(q)
+        ts.append(t)
+    q = rng.integers(0, 4, 300).astype(np.int8)
+    qs.append(q)
+    ts.append(np.concatenate([rng.integers(0, 4, 2500), q,
+                              rng.integers(0, 4, 3200)]).astype(np.int8))
+    return qs, ts
+
+
+def k2_phase(rng, dev, clock_hz, n=N_SW_PAIRS):
+    """K2's path, its entry sw_score_batch on n pairs (launch counts from 0
+    just before, read just after), then the same inputs through the plain
+    version on the card: equal scores, and the kernel's time beside the
+    plain version's and the bound."""
+    from fermi_tpu_torch.ops import sw_cuda
+
+    qs, ts = sw_pairs(rng, n)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = sw_cuda.sw_score_batch(qs, ts, device=dev)
+    entry_s = time.perf_counter() - t0
+    n_launch = launches()["sw_score_batch"]
+    if dev.type == "cuda" and n_launch < 1:
+        raise AssertionError("sw_score_batch did not launch K2")
+    (qc, qo), (tc, to) = sw_cuda.pack(qs), sw_cuda.pack(ts)
+    args = [torch.from_numpy(a).to(dev) for a in (qc, qo, tc, to)]
+    want = sw_cuda.sw_score_batch_plain(*args).cpu().numpy()
+    err = int(np.abs(got.astype(np.int64) - want).max())
+    if err or got[-1] != 1500:
+        raise AssertionError(f"K2 differs from its plain version: {err}, "
+                             f"long pair {got[-1]}")
+    cells = int((np.diff(qo) * np.diff(to)).sum())
+    ms = time_ms(lambda: sw_cuda.sw_scores(*args), reps=10)
+    plain_ms = time_ms(lambda: sw_cuda.sw_score_batch_plain(*args), reps=2)
+    nbytes = qc.size + tc.size + 8 * (qo.size + to.size) + 4 * n
+    bound, by = bound_ms(nbytes, {c: v * cells for c, v in
+                                  K2_OPS_PER_CELL.items()}, clock_hz)
+    log("k2_parity", pairs=n, cells=cells, longest_target=int(np.diff(to).max()),
+        launches=n_launch, entry_seconds=entry_s, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        ops_per_cell=K2_OPS_PER_CELL, library_ms=None,
+        library_note="no PyTorch call computes an alignment score")
+    return dict(launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def write_fastq(path, seq, qual, first_id=0):
+    with open(path, "wb") as f:
+        for lo in range(0, len(seq), 65536):
+            f.write(b"".join(
+                b"@r%d\n%s\n+\n%s\n" % (first_id + lo + i, s.tobytes(),
+                                          q.tobytes())
+                for i, (s, q) in enumerate(zip(seq[lo: lo + 65536],
+                                               qual[lo: lo + 65536]))))
+
+
+def noisy_reads(rng, genome, n):
+    """n reads of 100 bp with 1% substitutions at quality 14 and quality 38
+    elsewhere (the recipe of tests/test_correct.py), half of them reverse
+    complemented, one in 64 with an N.  Returns (start positions, ASCII
+    reads, ASCII quals, true ASCII sequences as written), uint8 [n, 100]."""
+    pos = rng.integers(0, len(genome) - READ_LEN + 1, n)
+    truth = genome[pos[:, None] + np.arange(READ_LEN)]
+    reads = truth.copy()
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = (reads[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    qual = np.where(err, 14 + 33, 38 + 33).astype(np.uint8)
+    flip = rng.random(n) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    truth[flip] = 3 - truth[flip, ::-1]
+    qual[flip] = qual[flip, ::-1]
+    asc = np.frombuffer(b"ACGT", np.uint8)
+    seq = asc[reads]
+    with_n = np.flatnonzero(rng.random(n) < 1 / 64)
+    seq[with_n, rng.integers(0, READ_LEN, with_n.size)] = ord("N")
+    return pos, seq, qual, asc[truth]
+
+
+def truth_share(path, truth):
+    """Of the records of a corrected FASTQ (names @<id>_<qsum>_<sdiff>),
+    how many, and the share whose bases (case ignored) equal the genome."""
+    lines = open(path, "rb").read().split(b"\n")
+    m = len(lines) // 4
+    ids = np.array([int(h[1:].split(b"_")[0]) for h in lines[0: 4 * m: 4]])
+    seqs = np.frombuffer(b"".join(lines[1: 4 * m: 4]), np.uint8)
+    seqs = seqs.reshape(m, READ_LEN) & 0xDF          # upper case
+    return m, float((seqs == truth[ids]).all(1).mean()) if m else 0.0
+
+
+def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
+    """The correct path on `dev`: build of noisy reads, `correct` of all of
+    them through the CLI, then of the first n_sub with the host fix and with
+    the device fix (byte-equal outputs).  Returns what the seqsort phase and
+    the cross-check need."""
+    from fermi_tpu_torch.algos import correct as ec
+    from fermi_tpu_torch.search import ecfix_device as ef
+
+    t0 = time.perf_counter()
+    pos, seq, qual, truth = noisy_reads(rng, genome, n_reads)
+    fq = os.path.join(workdir, "noisy.fq")
+    write_fastq(fq, seq, qual)
+    sub_fq = os.path.join(workdir, "sub.fq")
+    write_fastq(sub_fq, seq[:n_sub], qual[:n_sub])
+    window = np.flatnonzero(pos <= CROSS_WINDOW - READ_LEN)
+    win_fq = os.path.join(workdir, "window.fq")
+    write_fastq(win_fq, seq[window], qual[window])
+    raw_equal = float((seq == truth).all(1).mean())
+    log("ec_data", reads=n_reads, raw_equal_share=raw_equal,
+        seconds=time.perf_counter() - t0)
+
+    dv = ["--device", str(dev)]
+    fmd = os.path.join(workdir, "noisy.fmd")
+    t_build, _, _ = run_cli(["build", *dv, "-fo", fmd, fq])
+    threads = str(os.cpu_count() or 1)
+    ec_fq = os.path.join(workdir, "ec.fq")
+    reset_launches()
+    t_corr, _, err = run_cli(["correct", *dv, "-t", threads, fmd, fq], ec_fq)
+    k1 = launches()["rank6_fused"]
+    if dev.type == "cuda" and k1 < 1:
+        raise AssertionError("correct did not launch K1")
+    kmers = re.search(r"collected (\d+) informative and (\d+) ambiguous", err)
+    n_out, share = truth_share(ec_fq, truth)
+    log("correct", reads=n_reads, build_seconds=t_build, seconds=t_corr,
+        threads=int(threads), k=int(re.search(r"k-mer length to (\d+)",
+                                               err).group(1)),
+        collect_seconds=ec.STATS["collect_s"], bfs_levels=ec.STATS["levels"],
+        extend_calls=ec.STATS["extend_calls"],
+        max_frontier=ec.STATS["max_frontier"],
+        informative_kmers=int(kmers.group(1)),
+        ambiguous_kmers=int(kmers.group(2)), k1_launches=k1,
+        fix_seconds=ec.STATS["fix_s"],
+        fix_reads_per_s=n_reads / ec.STATS["fix_s"],
+        reads_out=n_out, corrected_equal_share=share,
+        raw_equal_share=raw_equal)
+
+    outs = {}
+    for mode in ("0", "1"):
+        os.environ["FERMI_TPU_DEVICE_FIX"] = mode
+        ef.STATS.update(waves=0, rounds=0, round_s=0.0, n=0, n_redo=0)
+        out = os.path.join(workdir, f"sub{mode}.fq")
+        try:
+            t, _, _ = run_cli(["correct", *dv, "-t", threads, fmd, sub_fq],
+                              out)
+        finally:
+            os.environ.pop("FERMI_TPU_DEVICE_FIX")
+        outs[mode] = open(out, "rb").read()
+        extra = {}
+        if mode == "1":
+            extra = dict(redo=ef.STATS["n_redo"], waves=ef.STATS["waves"],
+                         rounds=ef.STATS["rounds"],
+                         host_ms_per_round=(1e3 * ef.STATS["round_s"]
+                                            / max(ef.STATS["rounds"], 1)))
+        log("correct_fix", fix="device" if mode == "1" else "host",
+            reads=n_sub, seconds=t, collect_seconds=ec.STATS["collect_s"],
+            fix_seconds=ec.STATS["fix_s"],
+            fix_reads_per_s=n_sub / ec.STATS["fix_s"], **extra)
+    if outs["0"] != outs["1"]:
+        raise AssertionError("device fix output differs from host fix output")
+    log("correct_fix_equal", reads=n_sub, bytes=len(outs["0"]), equal=True)
+    return dict(ec_fq=ec_fq, win_fq=win_fq, k1_launches=k1)
+
+
+def seqsort_phase(workdir, ec_fq, dev):
+    """The seqsort path: build of the corrected reads, then `seqsort`
+    through the CLI; the .rank array must be a permutation of the ids."""
+    from fermi_tpu_torch import rld
+
+    dv = ["--device", str(dev)]
+    fmd = os.path.join(workdir, "ec.fmd")
+    t_build, _, _ = run_cli(["build", *dv, "-fo", fmd, ec_fq])
+    n_seqs = rld.read_fmd(fmd).n_seqs
+    rank = os.path.join(workdir, "ec.rank")
+    reset_launches()
+    t, _, _ = run_cli(["seqsort", *dv, fmd], rank)
+    k1 = launches()["rank6_fused"]
+    if dev.type == "cuda" and k1 < 1:
+        raise AssertionError("seqsort did not launch K1")
+    arr = np.fromfile(rank, np.uint64)
+    if arr.size != n_seqs or not np.array_equal(
+            np.sort(arr >> np.uint64(2)), np.arange(n_seqs, dtype=np.uint64)):
+        raise AssertionError("seqsort: the .rank array is not a permutation")
+    log("seqsort", seqs=n_seqs, build_seconds=t_build, seconds=t,
+        k1_launches=k1, permutation=True)
+    return dict(k1_launches=k1)
+
+
+def cross_check_ec(workdir, win_fq, dev):
+    """collect and seqsort of the reads of one genome window on `dev` and on
+    the CPU (the plain versions): equal (cls, key, val) sets and equal
+    .rank arrays."""
+    from fermi_tpu_torch.algos import correct as ec
+    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    fmd = os.path.join(workdir, "window.fmd")
+    run_cli(["build", "--device", str(dev), "-fo", fmd, win_fq])
+    res, secs = [], {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        idx = FMDIndex.restore(fmd, d)
+        w = ec.auto_k(idx.total)
+        cls, key, val, counts = ec.collect_solid_kmers(idx, w, 3)
+        arr = seqsort(idx, verbose=False)
+        secs[d.type] = time.perf_counter() - t0
+        res.append((sorted(zip(cls.tolist(), key.tolist(), val.tolist())),
+                    counts, arr))
+    if res[0][:2] != res[1][:2]:
+        raise AssertionError("collect differs card vs CPU")
+    if not np.array_equal(res[0][2], res[1][2]):
+        raise AssertionError("seqsort differs card vs CPU")
+    log("cross_check_ec", window_bp=CROSS_WINDOW, seqs=int(res[0][2].size),
+        k=w, kmers=res[0][1][0], collect_equal=True, seqsort_equal=True,
+        device_seconds=secs[dev.type], cpu_seconds=secs["cpu"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -398,34 +722,57 @@ def main():
                          "card only\n")
         return 2
     from fermi_tpu_torch import native
-    from fermi_tpu_torch.ops import rank_cuda
+    from fermi_tpu_torch.ops import rank_cuda, sw_cuda
 
     dev = torch.device("cuda")
-    card = gpu_line()
+    card_line = gpu_line()
     t0 = time.perf_counter()
-    native.build_all([native.codec_job(), rank_cuda.kernel_job()])
+    native.build_all([native.codec_job(), native.ec_job(), native.rank_job(),
+                      native.sw_job()])
     native.get_lib()
+    native.get_ec_lib()
     rank_cuda.get_lib()
-    log("header", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        device=torch.cuda.get_device_name(0), build_seconds=time.perf_counter() - t0)
+    sw_cuda.get_lib()
+    build_s = time.perf_counter() - t0
+    clock_hz = max_sm_clock_hz()
+    log("header", card=card_line, torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        build_seconds=build_s, sm_clock_max_mhz=clock_hz / 1e6,
+        k1_ops_per_word=K1_OPS_PER_WORD, k1_ops_per_query=K1_OPS_PER_QUERY,
+        k2_ops_per_cell=K2_OPS_PER_CELL)
 
     rng = np.random.default_rng(args.seed)
-    err = k1_parity(rng, dev)
+    err = k1_parity(rng, dev, clock_hz)
+    k2 = k2_phase(rng, dev, clock_hz)
     with tempfile.TemporaryDirectory() as workdir:
         res = main_path(rng, workdir, dev, GENOME_LEN, N_READS, args.queries)
         gidx = cross_check(res["fmd"], res["q_fa"], res["exact_text"], dev)
-        k1 = k1_at_main_path_shape(gidx, res["maxi"], rng)
+        k1 = k1_at_main_path_shape(gidx, res["maxi"], rng, clock_hz)
         profile_exact(gidx, res["q_fa"])
+        del gidx
+        torch.cuda.empty_cache()
+        ec_res = correct_phase(rng, workdir, dev, res["genome"], N_READS)
+        ss = seqsort_phase(workdir, ec_res["ec_fq"], dev)
+        cross_check_ec(workdir, ec_res["win_fq"], dev)
+    k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
+                   + ss["k1_launches"])
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",
         "source": "fermi_tpu_torch/csrc/rank.cu",
         "replaces": "fermi_tpu/ops/rank_pallas.py:49",
-        "launches": res["launches"]["rank6_fused"],
+        "launches": k1_launches,
         "max_abs_err": max(err, k1["max_abs_err"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None}, {
+        "name": "sw_score_batch", "route": "cuda",
+        "source": "fermi_tpu_torch/csrc/sw.cu",
+        "replaces": "fermi_tpu/ops/sw_pallas.py:59",
+        "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}]}))
-    print(card)
+    print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,7 @@
     idx = api.load_index("out.fmd")
     for (start, end, size, closed, kf) in api.smem(idx, "ACGT..."):
         ...
+    seqs, quals = api.correct(["ACGT...", ...])     # k-mer error correction
 
 Every function runs on CUDA unless `device` names another device.
 """
@@ -58,4 +59,31 @@ def smem(index, seq: str, self_match: bool = False):
     return S.smem_all(index, [dna.encode(seq)], self_match=self_match)[0]
 
 
-__all__ = ["build_index", "save_index", "load_index", "smem"]
+DEFAULT_QUAL = 20      # reference fermi.h:10
+
+
+def correct(seqs, quals=None, k: int = -1, min_occ: int = 3,
+            n_threads: int = 4, device=None):
+    """Single-shot k-mer error correction (fm6_api_correct, correct.c:
+    464-511, the defaults of fermi_tpu's api.correct: w=19 when k<0,
+    min_occ=3, keep_bad, max_corr=0.3): build an FMD-index over the reads
+    on `device`, collect solid k-mers there, fix every read on the host
+    engine.  Returns (seqs, quals) lists of corrected strings."""
+    from fermi_tpu_torch.algos import correct as ec
+
+    w = k if k > 0 else 19
+    if quals is None:
+        quals = [chr(DEFAULT_QUAL + 33) * len(s) for s in seqs]
+    idx = build_index(seqs, device)
+    cls, key, val, _ = ec.collect_solid_kmers(idx, w, min_occ)
+    table = ec.SolidTable(w, cls, key, val)
+    opt = dict(w=w, min_occ=min_occ, keep_bad=1, is_paired=0, max_corr=0.3,
+               trim_l=0, step=5)
+    out_s, out_q, _, _ = ec.fix_reads(
+        table, opt, [s.encode() for s in seqs],
+        [q.encode() for q in quals], n_threads=n_threads)
+    return ([s.decode("latin1") for s in out_s],
+            [q.decode("latin1") for q in out_q])
+
+
+__all__ = ["build_index", "save_index", "load_index", "smem", "correct"]

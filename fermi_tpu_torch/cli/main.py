@@ -1,4 +1,5 @@
-"""fermi-compatible command line of the port: build, unpack, exact.
+"""fermi-compatible command line of the port: build, unpack, exact,
+correct, seqsort/seqrank.
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
 mirrors reference main.c.  Each subcommand runs on CUDA unless
@@ -135,12 +136,78 @@ def cmd_exact(args):
     return 0
 
 
+def _add_correct(sub):
+    p = sub.add_parser("correct", help="error-correct reads against an index")
+    p.add_argument("-M", dest="mmap", action="store_true")
+    p.add_argument("-K", dest="keep_bad", action="store_true")
+    p.add_argument("-t", dest="n_threads", type=int, default=1)
+    p.add_argument("-k", dest="w", type=int, default=-1)
+    p.add_argument("-v", dest="verbose", type=int, default=4)
+    p.add_argument("-O", dest="min_occ", type=int, default=3)
+    p.add_argument("-p", dest="is_paired", action="store_true")
+    p.add_argument("-C", dest="max_corr", type=float, default=0.3)
+    p.add_argument("-l", dest="trim_l", type=int, default=0)
+    p.add_argument("-s", dest="step", type=int, default=5)
+    _device_arg(p)
+    p.add_argument("fmd")
+    p.add_argument("fastx")
+    p.set_defaults(func=cmd_correct)
+
+
+def cmd_correct(args):
+    """Collect on the device, fix on the host engine (or on the device with
+    FERMI_TPU_DEVICE_FIX=1); the corrected FASTQ goes to stdout."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.algos import correct as ec
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    if args.mmap:
+        return _not_ported("correct", "-M (mmap index)", "item 3c")
+    ec.ec_correct(FMDIndex.restore(args.fmd, device), args.fastx, sys.stdout,
+                  w=args.w, min_occ=args.min_occ, keep_bad=args.keep_bad,
+                  is_paired=args.is_paired, max_corr=args.max_corr,
+                  trim_l=args.trim_l, step=args.step,
+                  n_threads=args.n_threads)
+    return 0
+
+
+def _add_seqsort(sub):
+    for name in ("seqsort", "seqrank"):
+        p = sub.add_parser(name, help="compute the rank of sequences")
+        p.add_argument("-M", dest="mmap", action="store_true")
+        p.add_argument("-t", dest="n_threads", type=int, default=1,
+                       help="accepted for compatibility; the walks run on "
+                            "the device")
+        _device_arg(p)
+        p.add_argument("fmd")
+        p.set_defaults(func=cmd_seqsort)
+
+
+def cmd_seqsort(args):
+    """The .rank array (uint64 per sequence) as raw bytes on stdout."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    if args.mmap:
+        return _not_ported(args.cmd, "-M (mmap index)", "item 3c")
+    arr = seqsort(FMDIndex.restore(args.fmd, device))
+    sys.stdout.flush()
+    sys.stdout.buffer.write(arr.tobytes())
+    sys.stdout.buffer.flush()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fermi-tpu-torch",
-        description="FMD-index build and search on CUDA (fermi-compatible CLI)")
+        description="FMD-index build, search and error correction on CUDA "
+                    "(fermi-compatible CLI)")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for add in (_add_build, _add_unpack, _add_exact):
+    for add in (_add_build, _add_unpack, _add_exact, _add_correct,
+                _add_seqsort):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

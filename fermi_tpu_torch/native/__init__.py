@@ -1,11 +1,12 @@
 """Builds and loads the port's compiled code with ctypes.
 
-Two shared libraries, each built from one source file of this package into
+Shared libraries, each built from one source file of this package into
 fermi_tpu_torch/build/ at first use (the directory is not committed):
 
-  * the RLD\\2 codec (native/rld_codec.cpp), plain g++, no torch headers;
-  * the CUDA kernels (csrc/*.cu), nvcc for sm_90a, plain C interface
-    (ops/rank_cuda.py loads it).
+  * the RLD\\2 codec (native/rld_codec.cpp) and the error-correction fix
+    engine (native/ec.cpp), plain g++, no torch headers;
+  * the CUDA kernels (csrc/rank.cu, csrc/sw.cu), nvcc for sm_90a, plain C
+    interface (ops/rank_cuda.py and ops/sw_cuda.py launch them).
 
 A library's file name carries a hash of its source and build command, so an
 edited source never loads a stale build, and each build lands under a
@@ -67,45 +68,115 @@ def build_all(jobs) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
 
 
-def codec_job() -> Job:
-    src = os.path.join(_PKG, "native", "rld_codec.cpp")
+def _gxx_job(name: str, source: str) -> Job:
+    src = os.path.join(_PKG, "native", source)
     cxx = shutil.which("g++") or "g++"
-    return Job("rld_codec", src,
-               (cxx, "-O2", "-std=c++17", "-fPIC", "-shared", src,
-                "-lpthread"))
+    return Job(name, src, (cxx, "-O2", "-std=c++17", "-fPIC", "-shared", src,
+                           "-lpthread"))
 
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
+
+
+def _nvcc_job(name: str, source: str) -> Job:
+    src = os.path.join(_PKG, "csrc", source)
+    return Job(name, src, (_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                           "-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", src))
+
+
+def codec_job() -> Job:
+    return _gxx_job("rld_codec", "rld_codec.cpp")
+
+
+def ec_job() -> Job:
+    return _gxx_job("fec", "ec.cpp")
+
+
+def rank_job() -> Job:
+    return _nvcc_job("rank_k1", "rank.cu")
+
+
+def sw_job() -> Job:
+    return _nvcc_job("sw_k2", "sw.cu")
+
+
+_P, _I, _I64, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_uint64)
+_SIGNATURES = {
+    "rld_codec": {
+        "frld_encode_file": (_I, [ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_uint8), _I64, _I, _I,
+                                  ctypes.c_char_p]),
+        "frld_decode_file": (_I, [ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                                  ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_uint64),
+                                  ctypes.POINTER(ctypes.c_int)]),
+        "frld_free": (None, [_P]),
+    },
+    "fec": {
+        # fec_create(w, suf_len, keys u32*, vals u8*, class_offsets i64*)
+        "fec_create": (_P, [_I, _I, _P, _P, _P]),
+        "fec_destroy": (None, [_P]),
+        # fec_fix(ctx, opt*, n, seqs u8*, quals u8*, offsets i64*,
+        #         info i32*, n_threads) -> hash queries
+        "fec_fix": (_U64, [_P, _P, _I64, _P, _P, _P, _P, _I]),
+        # fec_device_table(ids i64*, vals i32*, n, logt, mult, max_probe,
+        #                  slots i64*, svals i32*) -> 0 ok / 1 probe bound
+        "fec_device_table": (_I, [_P, _P, _I64, _I, _U64, _I, _P, _P]),
+    },
+    # the kernels' entries return the cudaError_t of their launch
+    "rank_k1": {
+        # k1_rank_block_counts(words, off, out, n, stream)
+        "k1_rank_block_counts": (_I, [_P, _P, _P, _I64, _P]),
+        # k1_rank6_fused(fused, nrows, k, out, n, wide, stream)
+        "k1_rank6_fused": (_I, [_P, _I64, _P, _P, _I64, _I, _P]),
+    },
+    "sw_k2": {
+        "k2_tile": (_I, []),
+        # k2_sw_score(q, qoff, t, toff, n, match, mismatch, gapo, gape,
+        #             carry, coff, out, stream)
+        "k2_sw_score": (_I, [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P,
+                             _P, _P]),
+    },
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
+
+
+def load(job_fn) -> ctypes.CDLL:
+    """The library of one job, built on first use, signatures declared.
+    Later calls (every kernel launch makes one) only look it up."""
+    lib = _libs.get(job_fn)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(job_fn)
+            if lib is None:
+                job = job_fn()
+                build_all([job])
+                lib = ctypes.CDLL(job.path)
+                for fn, (restype, argtypes) in _SIGNATURES[job.name].items():
+                    getattr(lib, fn).restype = restype
+                    getattr(lib, fn).argtypes = argtypes
+                _libs[job_fn] = lib
+    return lib
 
 
 def get_lib() -> ctypes.CDLL:
     """The RLD codec, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            job = codec_job()
-            build_all([job])
-            lib = ctypes.CDLL(job.path)
-            lib.frld_encode_file.restype = ctypes.c_int
-            lib.frld_encode_file.argtypes = [
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.c_int64,
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.c_char_p,
-            ]
-            lib.frld_decode_file.restype = ctypes.c_int
-            lib.frld_decode_file.argtypes = [
-                ctypes.c_char_p,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint64),
-                ctypes.POINTER(ctypes.c_int),
-            ]
-            lib.frld_free.restype = None
-            lib.frld_free.argtypes = [ctypes.c_void_p]
-            _lib = lib
-        return _lib
+    return load(codec_job)
+
+
+def get_ec_lib() -> ctypes.CDLL:
+    """The error-correction fix engine (native/ec.cpp), built on first use."""
+    return load(ec_job)

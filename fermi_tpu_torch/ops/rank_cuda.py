@@ -12,9 +12,6 @@ not count), so a run can show that its main path went through the kernel.
 """
 
 import ctypes
-import os
-import shutil
-import threading
 
 import torch
 
@@ -79,46 +76,9 @@ def rank6_fused_plain(fused: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
-
-
-def kernel_job() -> native.Job:
-    src = os.path.join(_PKG, "csrc", "rank.cu")
-    return native.Job("rank_k1", src,
-                      (_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                       "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                       src))
-
-
-_lock = threading.Lock()
-_lib = None
-
-
 def get_lib() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            job = kernel_job()
-            native.build_all([job])
-            lib = ctypes.CDLL(job.path)
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.k1_rank_block_counts.restype = ctypes.c_int
-            lib.k1_rank_block_counts.argtypes = [vp, vp, vp, i64, vp]
-            lib.k1_rank6_fused.restype = ctypes.c_int
-            lib.k1_rank6_fused.argtypes = [vp, i64, vp, vp, i64, ctypes.c_int,
-                                           vp]
-            _lib = lib
-        return _lib
+    """csrc/rank.cu, built on first use."""
+    return native.load(native.rank_job)
 
 
 def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device,

@@ -120,3 +120,92 @@ def test_cli_exact(card, tmp_path):
             assert main(["exact", "--device", dev, fmd, qfa]) == 0
         outs.append((open(fmd, "rb").read(), buf.getvalue()))
     assert outs[0] == outs[1]
+
+
+def test_k2_against_plain(card):
+    """K2 on the card against its plain version: random pairs, targets
+    across several warp passes, length-1 and empty sequences."""
+    from fermi_tpu_torch.ops import sw_cuda
+
+    rng = np.random.default_rng(11)
+    qs, ts = [], []
+    for i in range(600):
+        q = rng.integers(0, 4, int(rng.integers(1, 300))).astype(np.int8)
+        tl = int(rng.integers(1, 5000 if i % 50 == 0 else 600))
+        t = rng.integers(0, 4, tl).astype(np.int8)
+        if i % 2:
+            at = int(rng.integers(0, tl))
+            t = np.concatenate([t[:at], q, t[at:]])
+        qs.append(q)
+        ts.append(t)
+    qs += [np.array([1], np.int8), np.zeros(0, np.int8), np.array([2], np.int8)]
+    ts += [np.array([1], np.int8), np.array([3], np.int8), np.zeros(0, np.int8)]
+    before = sw_cuda.LAUNCHES["sw_score_batch"]
+    got = sw_cuda.sw_score_batch(qs, ts, device=card)
+    assert sw_cuda.LAUNCHES["sw_score_batch"] == before + 1
+    assert np.array_equal(got, sw_cuda.sw_score_batch(qs, ts, device="cpu"))
+    assert got[-3] == 5 and got[-2] == 0 and got[-1] == 0
+
+
+@pytest.fixture(scope="module")
+def ec_files(card, tmp_path_factory):
+    """A 4 kbp genome at 20x with 1% substitutions at quality 14, as FASTQ,
+    and its index built on the card."""
+    from fermi_tpu_torch.cli.main import main
+
+    d = tmp_path_factory.mktemp("ec")
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, 4000)
+    asc = np.frombuffer(b"ACGT", np.uint8)
+    fq = str(d / "r.fq")
+    with open(fq, "w") as f:
+        for i in range(800):
+            p = int(rng.integers(0, 3900))
+            r = genome[p:p + 100].copy()
+            q = np.full(100, 38 + 33, np.uint8)
+            e = rng.random(100) < 0.01
+            r[e] = (r[e] + rng.integers(1, 4, int(e.sum()))) % 4
+            q[e] = 14 + 33
+            if i % 2:
+                r, q = 3 - r[::-1], q[::-1]
+            s = asc[r].tobytes().decode()
+            if i % 29 == 0:
+                s = s[:40] + "N" + s[41:]
+            f.write(f"@r{i}\n{s}\n+\n{q.tobytes().decode()}\n")
+    fmd = str(d / "i.fmd")
+    assert main(["build", "--device", "cuda", "-fo", fmd, fq]) == 0
+    return fq, fmd
+
+
+@pytest.mark.parametrize("device_fix", ["0", "1"])
+def test_correct_card_vs_cpu(ec_files, monkeypatch, device_fix):
+    from fermi_tpu_torch.algos import correct as ec
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    fq, fmd = ec_files
+    monkeypatch.setenv("FERMI_TPU_DEVICE_FIX", device_fix)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        idx = FMDIndex.restore(fmd, dev)
+        assert idx.device.type == dev
+        got = ec.collect_solid_kmers(idx, 19, 3)
+        buf = io.StringIO()
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        ec.ec_correct(idx, fq, buf, n_threads=2, verbose=False)
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] > before
+        outs.append((sorted(zip(*(a.tolist() for a in got[:3]))), got[3],
+                     buf.getvalue()))
+    assert outs[0] == outs[1] and outs[0][2].count("\n+\n") > 700
+
+
+def test_seqsort_card_vs_cpu(ec_files):
+    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    _, fmd = ec_files
+    got = seqsort(FMDIndex.restore(fmd, "cuda"), batch=300, verbose=False)
+    assert np.array_equal(got, seqsort(FMDIndex.restore(fmd, "cpu"),
+                                       verbose=False))
+    assert np.array_equal(np.sort(got >> np.uint64(2)),
+                          np.arange(len(got), dtype=np.uint64))

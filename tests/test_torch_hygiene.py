@@ -51,7 +51,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch.cli.main import main
     from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
     from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.ops.sw_cuda import sw_score_batch
     from fermi_tpu_torch.rld import Runs
+    from fermi_tpu_torch.search.ecfix_device import build_device_table
 
     bwt = np.array([1, 0, 2], np.uint8)
     fa = tmp_path / "r.fa"
@@ -62,7 +64,16 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
              lambda: FMDIndex.from_bwt(bwt),
              lambda: FMDIndex.from_runs(Runs.from_bwt(bwt)),
              lambda: multistring_bwt_device(np.array([1, 0], np.uint8)),
-             lambda: main(["build", "-fo", str(tmp_path / "y.fmd"), str(fa)])]
+             lambda: main(["build", "-fo", str(tmp_path / "y.fmd"), str(fa)]),
+             lambda: api.correct(["ACGT"]),
+             lambda: sw_score_batch([np.array([1], np.int8)],
+                                    [np.array([1], np.int8)]),
+             lambda: build_device_table(np.zeros(1, np.int64),
+                                        np.zeros(1, np.uint32),
+                                        np.zeros(1, np.uint8), 17),
+             lambda: main(["correct", str(tmp_path / "x.fmd"), str(fa)]),
+             lambda: main(["seqsort", str(tmp_path / "x.fmd")]),
+             lambda: main(["seqrank", str(tmp_path / "x.fmd")])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
