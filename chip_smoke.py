@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fermi_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--queries N]
+    python3 chip_smoke.py [--seed N] [--queries N] [--against TREE]
 
 Run from the repository root on a machine with a CUDA card.  It builds the
 kernels and native engines from the sources in the checkout (all compilers
-at once), holds kernels K1 (csrc/rank.cu) and K2 (csrc/sw.cu) bit-equal to
+at once; `nvcc -Xptxas -v` beside them reports each kernel's registers and
+spills), holds kernels K1 (csrc/rank.cu) and K2 (csrc/sw.cu) bit-equal to
 their plain PyTorch versions on the card, then drives the port's paths
 through their entry points at the size of a bacterial re-sequencing run of
 a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
 100 bp reads:
 
-- K2's entry `sw_score_batch` on 65,536 alignment pairs (and one pair whose
-  target is longer than a warp pass of the kernel);
+- K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
+  query in a 6,000 bp target, longer than one chunk of the kernel's rows);
 - `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
   ids, and `exact` of 100,000 reads with 1% substitutions; the first 512
   queries are searched again on the CPU and must give the same SMEM tuples;
-  then one 4,096-read `exact` batch is profiled (device busy and idle share,
-  device time by kernel);
+  then K1 on uniform keys at the shape of a loop step, K1 on the keys of
+  every loop step of one 4,096-read `exact` batch (dead interval slots at
+  fermi_tpu's spread keys and at key 0), and that batch profiled both ways
+  (device busy and idle share, device time by kernel);
 - `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
   of all of them, then of the first 262,144 with the host fix and with the
   device fix, whose outputs must be byte-equal; the corrected reads are
@@ -26,6 +29,16 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   permutation;
 - the collect and seqsort of a 100 kbp window of the reads on the card and
   on the CPU (the plain versions), which must be equal.
+
+Kernel times (`ms`) are device time alone: launches on several input sets
+captured in a CUDA graph and replayed between two events, with the
+profiler's (CUPTI) kernel durations beside them (`cupti_ms`); `call_ms` is
+one call between two events from the host, its host work included.  With
+`--against TREE` (a checkout of another commit, e.g. the parent unpacked
+with `git archive` into the ignored smoke_tree/; the option may be given
+more than once) that tree's kernels are built too, launched through that
+tree's own wrappers, and timed in turns with these (old, new, new, old) on
+the same inputs.
 
 Every launch counter is set to 0 just before each path and read just after
 it; a path that launched none of its kernels fails.  Every phase prints one
@@ -36,6 +49,7 @@ non-zero; so does a machine without CUDA.
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -103,8 +117,10 @@ def gpu_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps=20):
-    """Median device time of fn() over reps launches (CUDA events)."""
+def call_ms(fn, reps=20):
+    """Median time of one call of fn() from the host's view: an event, the
+    call (its host work and its launches), an event, on an idle card.  A
+    host-bound loop pays this per call."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -117,6 +133,49 @@ def time_ms(fn, reps=20):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return float(np.median(ts))
+
+
+def graph_ms(fns, replays=3):
+    """Device time per call of the calls fns[0](), fns[1](), ... (each a
+    launch on its own inputs): all captured in one CUDA graph, replayed
+    between two events, divided by the calls.  No host work in the window."""
+    for f in fns:                 # warm-up, outside the capture
+        f()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for f in fns:
+            f()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    b.synchronize()
+    del g
+    return a.elapsed_time(b) / (replays * len(fns))
+
+
+def cupti_ms(fns, kernel):
+    """Device time per call of fns[0](), fns[1](), ... read from the
+    profiler's (CUPTI) record of the kernels whose name holds `kernel`:
+    (mean over the records found, their count; it should be len(fns))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return (sum(us) / 1e3 / len(us) if us else "not measured"), len(us)
 
 
 def random_rows(rng, n):
@@ -161,12 +220,33 @@ def k1_ops(off, wide=False):
     return ops
 
 
+def k1_bytes(k):
+    """The bytes rank6_fused must move for keys k, counted in 32-byte
+    sectors of the fused rows (96 B apart, so sector-aligned): for each
+    touched row its occ sector and the sectors of packed words below the
+    largest offset among its keys (symbols 0-63 one, 64-127 two); each key
+    read once and its six counts written once."""
+    kl = k.long()
+    blk = kl >> 7
+    top = torch.full((int(blk.max()) + 1,), -1, dtype=torch.int64,
+                     device=k.device)
+    top.scatter_reduce_(0, blk, kl & 127, "amax")
+    top = top[top >= 0]
+    return 32 * int((1 + (top + 63) // 64).sum()) + k.numel() * k.element_size() * 7
+
+
 def fused_bound_ms(k, clock_hz):
-    """rank6_fused on keys k: each touched 96 B row read once, each key
-    read and its six counts written once."""
-    rows = torch.unique(k.long() >> 7).numel()
-    return bound_ms(rows * 96 + k.numel() * k.element_size() * 7,
-                    k1_ops(k.long() & 127, k.dtype == torch.int64), clock_hz)
+    """rank6_fused's bound on keys k: k1_bytes against the operations."""
+    return bound_ms(k1_bytes(k), k1_ops(k.long() & 127,
+                                        k.dtype == torch.int64), clock_hz)
+
+
+def block_counts_bound_ms(off, clock_hz):
+    """rank_block_counts' bound: of each 64-byte row the sectors below its
+    offset, each offset read once, each row of 8 counts written once."""
+    sectors = int(((off.long() + 63) // 64).sum())
+    return bound_ms(32 * sectors + off.numel() * (4 + 32), k1_ops(off),
+                    clock_hz)
 
 
 def k1_parity(rng, dev, clock_hz, n=1 << 20):
@@ -182,9 +262,9 @@ def k1_parity(rng, dev, clock_hz, n=1 << 20):
     want = rc.rank_block_counts_plain(words, off)
     err = max(err, int((got - want).abs().max()))
     out = {"rank_block_counts": (
-        time_ms(lambda: rc.rank_block_counts(words, off)),
-        time_ms(lambda: rc.rank_block_counts_plain(words, off)),
-        bound_ms(n * (64 + 4 + 32), k1_ops(off), clock_hz)[0])}
+        graph_ms([lambda: rc.rank_block_counts(words, off)] * 8),
+        call_ms(lambda: rc.rank_block_counts_plain(words, off)),
+        block_counts_bound_ms(off, clock_hz)[0])}
     fused = torch.zeros((n, 24), dtype=torch.int32, device=dev)
     fused[:, :16] = words
     for name, dt, occ_hi in (("int32", torch.int32, 2**31 - 2**20),
@@ -203,8 +283,8 @@ def k1_parity(rng, dev, clock_hz, n=1 << 20):
         assert got.dtype == dt
         err = max(err, int((got.long() - want.long()).abs().max()))
         out[f"rank6_fused_{name}"] = (
-            time_ms(lambda: rc.rank6_fused(fused, kt)),
-            time_ms(lambda: rc.rank6_fused_plain(fused, kt)),
+            graph_ms([lambda: rc.rank6_fused(fused, kt)] * 8),
+            call_ms(lambda: rc.rank6_fused_plain(fused, kt)),
             fused_bound_ms(kt, clock_hz)[0])
     torch.cuda.synchronize()
     times = {}
@@ -406,40 +486,105 @@ def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS):
     return gidx
 
 
-def k1_at_main_path_shape(idx, maxi, rng, clock_hz):
-    """K1 at the shape of one SMEM loop step: lanes x 2 x maxi keys over the
-    index's own fused rows, kernel against plain version on the card."""
+def in_turns(old, new):
+    """Old and new timed in turns (old, new, new, old): each one's mean,
+    and the four times in order."""
+    t = [old(), new(), new(), old()]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def k1_at_main_path_shape(idx, maxi, rng, clock_hz, against=(), sets=16):
+    """K1 at the shape of one SMEM loop step: lanes x 2 x maxi keys, drawn
+    uniformly over the index's own fused rows, kernel against plain version
+    on the card.  `sets` different key sets are launched in turn, so rows
+    one launch brings into L2 are not what the next one reads.  Each tree
+    of `against` is timed in turns with this one on the same keys."""
     from fermi_tpu_torch.ops import rank_cuda as rc
     from fermi_tpu_torch.search import smem as sm
 
     n = sm.LANES * 2 * maxi
-    k = torch.from_numpy(rng.integers(0, idx.total + 1, n)).to(
-        idx.device).to(idx.idtype)
+    keys = [torch.from_numpy(rng.integers(0, idx.total + 1, n)).to(
+        idx.device).to(idx.idtype) for _ in range(sets)]
+    k = keys[0]
     got = rc.rank6_fused(idx.fused, k)
     err = int((got.long() - rc.rank6_fused_plain(idx.fused, k).long())
               .abs().max())
-    ms = time_ms(lambda: rc.rank6_fused(idx.fused, k))
-    plain_ms = time_ms(lambda: rc.rank6_fused_plain(idx.fused, k))
-    bound, by = fused_bound_ms(k, clock_hz)
-    log("k1_main_shape", keys=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by)
+    fns = [lambda x=x: rc.rank6_fused(idx.fused, x) for x in keys]
+    ms = graph_ms(fns)
+    cupti, n_rec = cupti_ms(fns, "rank6_fused")
+    res = dict(keys=n, live_keys=n, key_sets=sets, max_abs_err=err, ms=ms,
+               cupti_ms=cupti, cupti_records=n_rec,
+               call_ms=call_ms(lambda: rc.rank6_fused(idx.fused, k)),
+               plain_ms=call_ms(lambda: rc.rank6_fused_plain(idx.fused, k),
+                                reps=5))
+    bounds = [fused_bound_ms(x, clock_hz) for x in keys]
+    res.update(bound_ms=float(np.mean([b for b, _ in bounds])),
+               bound_by=bounds[0][1],
+               bound_bytes=float(np.mean([k1_bytes(x) for x in keys])))
+    res["share"] = res["bound_ms"] / ms
+    res["against"] = {}
+    for a in against:
+        old = [lambda x=x, a=a: a.rank6_fused(idx.fused, x) for x in keys]
+        err = max(err, int((a.rank6_fused(idx.fused, k).long()
+                            - got.long()).abs().max()))
+        r = res["against"][a.name] = {}
+        r["ms"], r["this_ms"], r["turns_ms"] = in_turns(
+            lambda: graph_ms(old), lambda: graph_ms(fns))
+    res["max_abs_err"] = err
+    log("k1_main_shape", **res)
     if err:
         raise AssertionError(f"K1 differs from its plain version: {err}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+    return res
 
 
-def profile_exact(idx, q_fa, lo=N_CROSS, n=4096):
-    """Where one `exact` batch (4,096 reads, one smem_all call) spends its
-    time on the card: the call timed alone after a warm-up at the learned
-    width, then once under torch.profiler for device time by kernel.  The
-    idle share is 1 - device busy time / unprofiled wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def dead_spread(shape, n_total, idt, device):
+    """The keys fermi_tpu gives the dead slots of a [B, 2W] step (its
+    search/smem.py `_dead_spread`, salt 1 for the low ends, 2 for the high
+    ends): a pseudo-random spread over [0, n_total)."""
+    b, w2 = shape
+    halves = []
+    for salt in (1, 2):
+        v = ((torch.arange(b * w2 // 2, dtype=torch.int64, device=device)
+              + salt * 40503) * 2654435761) & 0xFFFFFFFF
+        halves.append((v % max(n_total & 0xFFFFFFFF, 1)).to(idt)
+                      .view(b, w2 // 2))
+    return torch.cat(halves, 1)
 
-    from fermi_tpu_torch.core import dna, fastx
-    from fermi_tpu_torch.ops import rank_cuda as rc
+
+@contextlib.contextmanager
+def marked_dead_slots(idx, tap):
+    """smem_all on idx with the search's DEAD_KEY at -1 (no live key is
+    negative), so a step's dead slots show, and each rank6 call's keys
+    passed through tap(keys) first; both restored after, as found."""
     from fermi_tpu_torch.search import smem as sm
+
+    was = sm.DEAD_KEY
+    orig = idx.rank6
+    sm.DEAD_KEY = -1
+    idx.rank6 = lambda k: orig(tap(k))
+    try:
+        yield
+    finally:
+        sm.DEAD_KEY = was
+        del idx.rank6
+
+
+def spread_fill(idx):
+    """Dead slots' keys (-1 under marked_dead_slots) as fermi_tpu spreads
+    them."""
+    cache = {}
+
+    def fill(k):
+        if k.shape not in cache:
+            cache[k.shape] = dead_spread(k.shape, idx.total, k.dtype,
+                                         k.device)
+        return torch.where(k == -1, cache[k.shape], k)
+    return fill
+
+
+def exact_batch(q_fa, lo=N_CROSS, n=4096):
+    """Queries lo..lo+n-1 of q_fa, one `exact` batch (one smem_all call)."""
+    from fermi_tpu_torch.core import dna, fastx
 
     seqs = []
     for i, r in enumerate(fastx.read_fastx(q_fa)):
@@ -447,17 +592,111 @@ def profile_exact(idx, q_fa, lo=N_CROSS, n=4096):
             break
         if i >= lo:
             seqs.append(dna.encode(r.seq))
+    return seqs
+
+
+def k1_stream(idx, seqs, clock_hz, against=()):
+    """K1 on the keys of every loop step of one `exact` batch, captured from
+    FMDIndex.rank6, with the dead slots' keys as fermi_tpu spreads them and
+    at 0 (this port's): device time per step against the bound, and each
+    tree of `against` in turns with this one.  Returns the spread keys of
+    every step, in order."""
+    from fermi_tpu_torch.ops import rank_cuda as rc
+    from fermi_tpu_torch.search import smem as sm
+
     sm.smem_all(idx, seqs)                       # learns the width
+    rec = []
+
+    def tap(k):
+        rec.append(k.clone())
+        return k
+    with marked_dead_slots(idx, tap):
+        sm.smem_all(idx, seqs)
+    steps = len(rec)
+    live = sum(int((k != -1).sum()) for k in rec)
+    nkeys = sum(k.numel() for k in rec)
+    spread = spread_fill(idx)
+    res = dict(steps=steps, keys_per_step=nkeys / steps,
+               live_keys_per_step=live / steps, live_share=live / nkeys)
+    err = 0
+    spread_keys = None
+    for name, fill in (("spread", spread),
+                       ("zero", lambda k: torch.where(k == -1, 0, k))):
+        keys = [fill(k).reshape(-1).contiguous() for k in rec]
+        for x in keys[::max(1, steps // 8)]:
+            err = max(err, int((rc.rank6_fused(idx.fused, x).long()
+                                - rc.rank6_fused_plain(idx.fused, x).long())
+                               .abs().max()))
+        fns = [lambda x=x: rc.rank6_fused(idx.fused, x) for x in keys]
+        bound = sum(fused_bound_ms(x, clock_hz)[0] for x in keys)
+        ms = graph_ms(fns, replays=1)
+        cupti, n_rec = cupti_ms(fns, "rank6_fused")
+        r = dict(us_per_step=1e3 * ms, bound_us_per_step=1e3 * bound / steps,
+                 share=bound / steps / ms,
+                 cupti_us_per_step=(1e3 * cupti if isinstance(cupti, float)
+                                    else cupti), cupti_records=n_rec)
+        r["against"] = {}
+        for a in against:
+            old = [lambda x=x, a=a: a.rank6_fused(idx.fused, x) for x in keys]
+            p_ms, t_ms, turns = in_turns(lambda: graph_ms(old, replays=1),
+                                         lambda: graph_ms(fns, replays=1))
+            r["against"][a.name] = dict(
+                us_per_step=1e3 * p_ms, this_us_per_step=1e3 * t_ms,
+                turns_us_per_step=[1e3 * t for t in turns])
+        res[name] = r
+        if name == "spread":
+            spread_keys = [x.view(k.shape) for x, k in zip(keys, rec)]
+        del keys, fns
+    res["max_abs_err"] = err
+    log("k1_stream", **res)
+    if err:
+        raise AssertionError(f"K1 differs from its plain version: {err}")
+    return spread_keys
+
+
+def profile_exact(idx, seqs, keys=None):
+    """Where one `exact` batch (4,096 reads, one smem_all call) spends its
+    time on the card: the call timed alone after a warm-up at the learned
+    width, then once under torch.profiler for device time by kernel.  The
+    idle share is 1 - device busy time / unprofiled wall time.  With `keys`
+    (k1_stream's spread keys of each step) K1 gets those at each step in
+    place of the search's own, which differ only in the dead slots: the
+    same search and kernels, dead slots at fermi_tpu's spread instead of 0.
+    Returns the SMEM tuples."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fermi_tpu_torch.ops import rank_cuda as rc
+    from fermi_tpu_torch.search import smem as sm
+
+    def run():
+        if keys is None:
+            return sm.smem_all(idx, seqs)
+        steps = iter(keys)
+
+        def fed(k):
+            x = next(steps)
+            if x.shape != k.shape:
+                raise AssertionError("the search's steps changed")
+            return orig(x)
+        orig = idx.rank6
+        idx.rank6 = fed
+        try:
+            return sm.smem_all(idx, seqs)
+        finally:
+            del idx.rank6
+
+    run()                                        # learns the width
     before = rc.LAUNCHES["rank6_fused"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sm.smem_all(idx, seqs)
+    mems = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = rc.LAUNCHES["rank6_fused"] - before
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sm.smem_all(idx, seqs)
+        run()
         torch.cuda.synchronize()
     dev_us = {}                                  # device time by kernel
     n_dev = 0
@@ -468,21 +707,24 @@ def profile_exact(idx, q_fa, lo=N_CROSS, n=4096):
     busy = sum(dev_us.values()) / 1e6
     k1 = sum(t for key, t in dev_us.items() if "rank6_fused" in key) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-    log("profile_exact", queries=n, maxi=getattr(idx, "_smem_maxi", None),
-        wall_s=wall, reads_per_s=n / wall, loop_steps=steps,
+    log("profile_exact", dead_keys="zero" if keys is None else "spread",
+        queries=len(seqs), maxi=getattr(idx, "_smem_maxi", None),
+        wall_s=wall, reads_per_s=len(seqs) / wall, loop_steps=steps,
         host_ms_per_step=1e3 * wall / max(steps, 1),
         device_busy_s=busy if busy else "not measured",
         idle_share=1 - busy / wall if busy else "not measured",
-        k1_device_s=k1, device_ops_per_step=n_dev / max(steps, 1),
+        k1_device_s=k1, k1_device_us_per_step=1e6 * k1 / max(steps, 1),
+        device_ops_per_step=n_dev / max(steps, 1),
         top_device_us={k[:60]: v for k, v in top})
+    return mems
 
 
 def sw_pairs(rng, n):
     """n alignment pairs by the recipe of tests/test_sw_pallas.py scaled
     up: query 1-256 bp, target 1-512 bp, half of the pairs overlapping (the
     target holds a copy of the query with up to 5 substitutions); the last
-    pair is a 300 bp query inside a 6,000 bp target, longer than a warp
-    pass of the kernel (its score is 1,500)."""
+    pair is a 300 bp query inside a 6,000 bp target, whose query runs in two
+    chunks of the kernel's rows (its score is 1,500)."""
     qlen = rng.integers(1, 257, n)
     tlen = rng.integers(1, 513, n)
     overlap = rng.random(n) < 0.5
@@ -506,11 +748,43 @@ def sw_pairs(rng, n):
     return qs, ts
 
 
-def k2_phase(rng, dev, clock_hz, n=N_SW_PAIRS):
+def k2_lane_share(qo, to, rows):
+    """From K2's schedule of these pairs (a host count): the share of the
+    lane-row-steps the kernel runs that are cells of the pairs, and the
+    share left after the rows past each query alone (G is a power of
+    two)."""
+    from fermi_tpu_torch.ops import sw_cuda
+
+    tasks, _, _ = sw_cuda.schedule(qo, to, rows)
+    qlen, tlen = np.diff(qo), np.diff(to)
+    ids = tasks[:, 1:]
+    G = (tasks[:, 0] & (sw_cuda.PIPE - 1)).astype(np.int64)
+    tl = np.where(ids >= 0, tlen[ids.clip(0)], 0).max(1)
+    ql = np.where(ids >= 0, qlen[ids.clip(0)], 0).max(1)
+    # chunks each warp runs: one, or for warp w of a PIPE block (those
+    # come first) chunks w, w + BLOCK_WARPS, ...
+    chunks = -(-ql // (32 * rows))
+    w = np.arange(len(tasks)) % sw_cuda.BLOCK_WARPS
+    pipe = (tasks[:, 0] & sw_cuda.PIPE) > 0
+    ch = np.where(pipe, -(-(chunks - w) // sw_cuda.BLOCK_WARPS), 1).clip(0)
+    cells = int((qlen * tlen).sum())
+    row_slots = 0
+    for g, r, c in zip(G, ids, ch):
+        p = r[r >= 0]
+        row_slots += int((g * rows * c * tlen[p]).sum())
+    return dict(warps=len(tasks), pipe_blocks=int(pipe.sum())
+                // sw_cuda.BLOCK_WARPS,
+                cell_share=cells / int((32 * rows * ch * (tl + G - 1)).sum()),
+                row_share=cells / row_slots)
+
+
+def k2_phase(rng, dev, clock_hz, against=(), n=N_SW_PAIRS):
     """K2's path, its entry sw_score_batch on n pairs (launch counts from 0
     just before, read just after), then the same inputs through the plain
-    version on the card: equal scores, and the kernel's time beside the
-    plain version's and the bound."""
+    version on the card: equal scores, and the kernel's device time beside
+    the plain version's and the bound; the time without the longest pair
+    and of that pair alone; each tree of `against` timed in turns with this
+    one on the whole batch and on the longest pair alone."""
     from fermi_tpu_torch.ops import sw_cuda
 
     qs, ts = sw_pairs(rng, n)
@@ -529,18 +803,121 @@ def k2_phase(rng, dev, clock_hz, n=N_SW_PAIRS):
         raise AssertionError(f"K2 differs from its plain version: {err}, "
                              f"long pair {got[-1]}")
     cells = int((np.diff(qo) * np.diff(to)).sum())
-    ms = time_ms(lambda: sw_cuda.sw_scores(*args), reps=10)
-    plain_ms = time_ms(lambda: sw_cuda.sw_score_batch_plain(*args), reps=2)
+    qcat, tcat = args[0], args[2]
+
+    def this(lo, hi):
+        """A launch of this tree's K2 on pairs lo..hi-1 alone."""
+        plan = sw_cuda.sw_plan(qo[lo: hi + 1], to[lo: hi + 1], dev)
+        return lambda: sw_cuda.sw_scores(qcat, tcat, plan)
+
+    whole, longest = this(0, n), this(n - 1, n)
+    ms = graph_ms([whole] * 3)
+    res = dict(launches=n_launch, max_abs_err=err, ms=ms,
+               cupti_ms=cupti_ms([whole] * 3, "sw_wavefront")[0],
+               call_ms=call_ms(whole, reps=10))
+    without_longest = graph_ms([this(0, n - 1)] * 3)
+    longest_alone = graph_ms([longest] * 3)
+    res["plain_ms"] = call_ms(lambda: sw_cuda.sw_score_batch_plain(*args),
+                              reps=2)
     nbytes = qc.size + tc.size + 8 * (qo.size + to.size) + 4 * n
-    bound, by = bound_ms(nbytes, {c: v * cells for c, v in
-                                  K2_OPS_PER_CELL.items()}, clock_hz)
-    log("k2_parity", pairs=n, cells=cells, longest_target=int(np.diff(to).max()),
-        launches=n_launch, entry_seconds=entry_s, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        ops_per_cell=K2_OPS_PER_CELL, library_ms=None,
-        library_note="no PyTorch call computes an alignment score")
-    return dict(launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        nbytes, {c: v * cells for c, v in K2_OPS_PER_CELL.items()}, clock_hz)
+    res["share"] = res["bound_ms"] / ms
+    rows = sw_cuda.get_lib().k2_rows()
+    turns = {}
+    for a in against:
+        old_whole = a.sw_run(qcat, tcat, qo, to)
+        old_longest = a.sw_run(qcat, tcat, qo[n - 1:], to[n - 1:])
+        if not np.array_equal(old_whole().cpu().numpy(), got):
+            raise AssertionError(f"K2 of {a.name} differs from this one")
+        r = {}
+        r["ms"], r["this_ms"], r["turns_ms"] = in_turns(
+            lambda: graph_ms([old_whole] * 3), lambda: graph_ms([whole] * 3))
+        (r["longest_pair_ms"], r["this_longest_pair_ms"],
+         r["longest_pair_turns_ms"]) = in_turns(
+            lambda: graph_ms([old_longest] * 3),
+            lambda: graph_ms([longest] * 3))
+        turns[a.name] = r
+    log("k2_parity", pairs=n, cells=cells,
+        longest_target=int(np.diff(to).max()), entry_seconds=entry_s,
+        **res, ms_without_longest_pair=without_longest,
+        ms_longest_pair_alone=longest_alone, rows_per_lane=rows,
+        **k2_lane_share(qo, to, rows), ops_per_cell=K2_OPS_PER_CELL,
+        library_ms=None,
+        library_note="no PyTorch call computes an alignment score",
+        against=turns)
+    return res
+
+
+def import_tree(tree, names):
+    """Modules `names` of another checkout's fermi_tpu_torch, imported from
+    that tree apart from this one's (which is restored after): each keeps
+    its own tree's native loader, signatures, schedule and counters."""
+    import importlib
+
+    def ours(key):
+        return key == "fermi_tpu_torch" or key.startswith("fermi_tpu_torch.")
+    saved = {k: v for k, v in sys.modules.items() if ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, os.path.abspath(tree))
+    importlib.invalidate_caches()
+    try:
+        return [importlib.import_module(n) for n in names]
+    finally:
+        sys.path.pop(0)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+class Against:
+    """The kernels of another checkout of this repository (e.g. the parent
+    commit unpacked with `git archive`), launched through that tree's own
+    wrappers (ops/rank_cuda.py, ops/sw_cuda.py), so its kernels' C
+    interfaces and K2's schedule are that tree's: the yardstick of
+    `--against`.  Its launches count on its own counters, not on these."""
+
+    def __init__(self, tree):
+        self.name = os.path.basename(os.path.normpath(tree))
+        native, self.rc, self.sw = import_tree(tree, (
+            "fermi_tpu_torch.native", "fermi_tpu_torch.ops.rank_cuda",
+            "fermi_tpu_torch.ops.sw_cuda"))
+        native.build_all([native.rank_job(), native.sw_job()])
+        self.rc.get_lib()
+        self.sw.get_lib()
+
+    def rank6_fused(self, fused, k):
+        return self.rc.rank6_fused(fused, k)
+
+    def sw_run(self, qcat, tcat, qo, to):
+        """A function that launches this tree's K2 once on the pairs with
+        host offsets qo, to into qcat, tcat (on the card) and puts nothing
+        else on the stream (so a CUDA graph can capture it)."""
+        sw = self.sw
+        if hasattr(sw, "sw_plan"):
+            plan = sw.sw_plan(qo, to, qcat.device)
+            return lambda: sw.sw_scores(qcat, tcat, plan)
+        # the wrapper of PR 2's kernel sizes its carry on the card and reads
+        # it back, which a capture forbids: the same launch, sized here
+        lib = sw.get_lib()
+        dev = qcat.device
+        n = len(qo) - 1
+        need = np.where(np.diff(to) > lib.k2_tile(), 4 * np.diff(qo), 0)
+        qoff, toff, coff = (torch.from_numpy(a).to(dev)
+                            for a in (qo, to, np.cumsum(need) - need))
+        carry = torch.empty(max(int(need.sum()), 1), dtype=torch.int32,
+                            device=dev)
+
+        def run():
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            sw._raise_on(lib.k2_sw_score(
+                qcat.data_ptr(), qoff.data_ptr(), tcat.data_ptr(),
+                toff.data_ptr(), n, 5, -4, 5, 2, carry.data_ptr(),
+                coff.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream), "k2_sw_score")
+            return out
+        return run
 
 
 def write_fastq(path, seq, qual, first_id=0):
@@ -712,10 +1089,40 @@ def cross_check_ec(workdir, win_fq, dev):
         device_seconds=secs[dev.type], cpu_seconds=secs["cpu"])
 
 
+def ptxas_report(jobs):
+    """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
+    flags, output discarded); returns a function that waits and gives, per
+    source, the ptxas lines on registers and spills."""
+    procs = []
+    for job in jobs:
+        cmd = [c for c in job.command if c not in ("-shared", "-Xcompiler",
+                                                   "-fPIC")]
+        procs.append((os.path.basename(job.source), subprocess.Popen(
+            [*cmd, "-cubin", "-Xptxas", "-v", "-o", os.devnull],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def wait():
+        out = {}
+        for name, p in procs:
+            text, _ = p.communicate()
+            out[name] = [ln.split("ptxas info    :")[-1].strip()
+                         for ln in text.splitlines()
+                         if "registers" in ln or "spill" in ln
+                         or "Function properties" in ln]
+        return out
+    return wait
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--queries", type=int, default=100_000)
+    ap.add_argument("--against", metavar="TREE", action="append",
+                    default=[],
+                    help="another checkout of the repository (e.g. the "
+                         "parent commit), may be given more than once: its "
+                         "kernels are built too and timed in turns with "
+                         "these on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; this test runs on the "
@@ -727,51 +1134,58 @@ def main():
     dev = torch.device("cuda")
     card_line = gpu_line()
     t0 = time.perf_counter()
+    ptxas = ptxas_report([native.rank_job(), native.sw_job()])
     native.build_all([native.codec_job(), native.ec_job(), native.rank_job(),
                       native.sw_job()])
     native.get_lib()
     native.get_ec_lib()
     rank_cuda.get_lib()
     sw_cuda.get_lib()
+    against = [Against(tree) for tree in args.against]
     build_s = time.perf_counter() - t0
     clock_hz = max_sm_clock_hz()
+    nvcc = subprocess.run([native.rank_job().command[0], "--version"],
+                          capture_output=True, text=True, check=True)
     log("header", card=card_line, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        nvcc=nvcc.stdout.strip().splitlines()[-1],
         build_seconds=build_s, sm_clock_max_mhz=clock_hz / 1e6,
+        ptxas=ptxas(), against=args.against,
         k1_ops_per_word=K1_OPS_PER_WORD, k1_ops_per_query=K1_OPS_PER_QUERY,
         k2_ops_per_cell=K2_OPS_PER_CELL)
 
     rng = np.random.default_rng(args.seed)
     err = k1_parity(rng, dev, clock_hz)
-    k2 = k2_phase(rng, dev, clock_hz)
+    k2 = k2_phase(rng, dev, clock_hz, against)
     with tempfile.TemporaryDirectory() as workdir:
         res = main_path(rng, workdir, dev, GENOME_LEN, N_READS, args.queries)
         gidx = cross_check(res["fmd"], res["q_fa"], res["exact_text"], dev)
-        k1 = k1_at_main_path_shape(gidx, res["maxi"], rng, clock_hz)
-        profile_exact(gidx, res["q_fa"])
-        del gidx
+        k1 = k1_at_main_path_shape(gidx, res["maxi"], rng, clock_hz,
+                                   against)
+        seqs = exact_batch(res["q_fa"])
+        spread_keys = k1_stream(gidx, seqs, clock_hz, against)
+        if profile_exact(gidx, seqs, spread_keys) != profile_exact(gidx, seqs):
+            raise AssertionError("dead slots' keys changed the SMEMs")
+        del gidx, spread_keys
         torch.cuda.empty_cache()
         ec_res = correct_phase(rng, workdir, dev, res["genome"], N_READS)
         ss = seqsort_phase(workdir, ec_res["ec_fq"], dev)
         cross_check_ec(workdir, ec_res["win_fq"], dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"])
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",
         "source": "fermi_tpu_torch/csrc/rank.cu",
         "replaces": "fermi_tpu/ops/rank_pallas.py:49",
         "launches": k1_launches,
         "max_abs_err": max(err, k1["max_abs_err"]),
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}, {
+        **{key: k1[key] for key in keys}, "library_ms": None}, {
         "name": "sw_score_batch", "route": "cuda",
         "source": "fermi_tpu_torch/csrc/sw.cu",
         "replaces": "fermi_tpu/ops/sw_pallas.py:59",
         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None}]}))
+        **{key: k2[key] for key in keys}, "library_ms": None}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,17 @@
 // rank6(k)[c] = occ[k >> 7][c] + count of c among the first (k & 127)
 // symbols of block k >> 7.
 //
-// Bound on this card: memory.  A query reads one 96-byte fused row (three
-// 32-byte sectors, rows are random) plus its key and writes six counts, and
-// does ~1e3 32-bit ALU operations, so at 3.35 TB/s and the ALU rate the
-// gather dominates.  Design: one thread per query, the row as six 16-byte
-// vector loads through the read-only path, counts kept in registers.  No
-// shared-memory staging: rows are not reused across the threads of a block.
+// Bound on this card: memory.  A query reads its key, the 32-byte sectors
+// of one random 96-byte fused row that its offset needs (the occ sector,
+// and the word sectors below the offset: none at offset 0, one up to 64,
+// two above) and writes six counts; its counting is a few popcounts a word,
+// so at 3.35 TB/s and the integer rates the gather dominates.  Design: one
+// thread per query, the needed sectors as 16-byte vector loads through the
+// read-only path (1-3% faster than the whole row on the H100), only the
+// words below the offset counted, counts kept in registers.  No
+// shared-memory staging: rows are not reused across the threads of a
+// block, and staging the six counts to write whole lines was no faster on
+// the H100.
 //
 // Two entry points, both a plain C interface for ctypes:
 //   k1_rank_block_counts: the TPU kernel's exact counterpart (words, off) ->
@@ -98,12 +103,26 @@ rank6_fused_kernel(const int4* __restrict__ fused, int64_t nrows,
   blk = blk < 0 ? 0 : (blk >= nrows ? nrows - 1 : blk);
   const int o = int(kk & T(127));
   const int4* row = fused + blk * 6;
-  int4 v[6];
-#pragma unroll
-  for (int q = 0; q < 6; ++q) v[q] = __ldg(row + q);
+  // Only the 32-byte sectors the offset needs: words 0-7 (symbols 0-63)
+  // when o > 0, words 8-15 when o > 64, the occ counts always.  Words
+  // not loaded are zero and lie past the offset, where they count nothing.
+  const int4 zero = make_int4(0, 0, 0, 0);
+  int4 v[6] = {zero, zero, zero, zero, __ldg(row + 4), __ldg(row + 5)};
+  if (o > 0) {
+    v[0] = __ldg(row + 0);
+    v[1] = __ldg(row + 1);
+  }
+  if (o > 64) {
+    v[2] = __ldg(row + 2);
+    v[3] = __ldg(row + 3);
+  }
+  // and only the quads (32 symbols each) that start below the offset are
+  // counted: a key at offset 0, a dead SMEM slot's key among them, counts
+  // nothing
   int cnt[6] = {0, 0, 0, 0, 0, 0};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) count_quad(v[q], o, 4 * q, cnt);
+  for (int q = 0; q < 4; ++q)
+    if (o > 32 * q) count_quad(v[q], o, 4 * q, cnt);
   // Trouble spot: occ counts of indexes with 2^31 <= n < 2^32 are stored
   // as negative int32 patterns; read them as uint32 before widening.
   const uint32_t occ[6] = {uint32_t(v[4].x), uint32_t(v[4].y),

@@ -142,11 +142,12 @@ _SIGNATURES = {
         "k1_rank6_fused": (_I, [_P, _I64, _P, _P, _I64, _I, _P]),
     },
     "sw_k2": {
-        "k2_tile": (_I, []),
-        # k2_sw_score(q, qoff, t, toff, n, match, mismatch, gapo, gape,
-        #             carry, coff, out, stream)
-        "k2_sw_score": (_I, [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P,
-                             _P, _P]),
+        "k2_rows": (_I, []),
+        "k2_block_warps": (_I, []),
+        # k2_sw_score(q, qoff, t, toff, tasks, ntasks, match, mismatch,
+        #             gapo, gape, carry, coff, out, stream)
+        "k2_sw_score": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P,
+                             _P, _P, _P]),
     },
 }
 

@@ -51,19 +51,13 @@ def _comp6(c):
     return torch.where((c >= 1) & (c <= 4), 5 - c, c)
 
 
-def _dead_spread(n, n_total, idt, salt, device):
-    """Gather positions for DEAD interval slots: a loop-invariant
-    pseudo-random spread over [0, n_total), as in fermi_tpu (there it keeps
-    dead lanes' gathers off each other's memory banks; here it keeps the
-    same positions so both versions issue the same rank queries).
-
-    Trouble spot: fermi_tpu multiplies in uint32 with wraparound.  This is
-    the same arithmetic in int64 with a 32-bit mask; the result stays in
-    [0, n_total), a valid rank position."""
-    v = ((torch.arange(n, dtype=torch.int64, device=device) + salt * 40503)
-         * 2654435761) & 0xFFFFFFFF
-    nm = max(n_total & 0xFFFFFFFF, 1)
-    return (v % nm).to(idt)
+# Rank key of a dead interval slot, whose counts are never read.  fermi_tpu
+# spreads dead slots pseudo-randomly over the index to keep their gathers
+# off each other's memory banks on the TPU; on the card each such key is a
+# random row gather, while key 0 reads row 0 (all zeros), which stays in
+# cache.  Tests and measurements set -1 (no live key is negative) to find
+# the dead slots of a step.
+DEAD_KEY = 0
 
 
 def _excl_cumsum(m, dim=-1):
@@ -126,8 +120,6 @@ def _smem_batch(index: FMDIndex, q: torch.Tensor, l: torch.Tensor,
     ll = l[rid]                          # per-lane read length
     done = (x >= ll) | (jB >= NP)
     kb, kf, sz = set_intv(qat(x, rid))
-    deadA = _dead_spread(B * W, index.total, idt, 1, dev).view(B, W)
-    deadB = _dead_spread(B * W, index.total, idt, 2, dev).view(B, W)
     NO = NP if pool else B               # output rows (per read)
     nxt = torch.tensor(B, dtype=i32, device=dev)
     out_info = torch.zeros(NO + 1, dtype=i32, device=dev)
@@ -194,9 +186,10 @@ def _smem_batch(index: FMDIndex, q: torch.Tensor, l: torch.Tensor,
         c_b = torch.where(i < 0, 0, qat(i, rid).to(i32))
         cl = torch.where(bwd, c_b, c_f).long()
 
-        primary = torch.where(live, torch.where(bwdW, Ekb, Ekf), deadA)
-        hi = torch.where(live, primary + Esz, deadB)
-        tkl = index.rank6(torch.cat([primary, hi], 1))     # [B, 2W, 6]
+        primary = torch.where(bwdW, Ekb, Ekf)
+        keys = torch.where(live.repeat(1, 2),
+                           torch.cat([primary, primary + Esz], 1), DEAD_KEY)
+        tkl = index.rank6(keys)                            # [B, 2W, 6]
         tk, tl = tkl[:, :W], tkl[:, W:]
         osz = tl - tk
         other_base = torch.where(bwdW, Ekf, Ekb)

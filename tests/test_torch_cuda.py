@@ -61,6 +61,83 @@ def test_k1_entry_points(card):
         rank_cuda.rank6_fused(fused.to(card), k.to(card)[::2])
 
 
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64])
+def test_k1_sector_offsets_and_dead_keys(card, dt):
+    """rank6_fused at the offsets where the sectors it loads change (0, 1,
+    63, 64, 65, 127 and 128, the next row's 0), occ patterns >= 2^31, and a
+    batch whose keys are mostly 0 (the dead slots of an SMEM step)."""
+    w, _ = _rows(64, seed=8)
+    fused = torch.zeros((65, 24), dtype=torch.int32)
+    fused[:64, :16] = w
+    g = torch.Generator().manual_seed(9)
+    fused[:, 16:22] = torch.randint(-2**31, 2**31 - 1, (65, 6), generator=g,
+                                    dtype=torch.int32)
+    offs = torch.tensor([0, 1, 63, 64, 65, 127, 128])
+    k = (torch.arange(64)[:, None] * 128 + offs).reshape(-1)
+    mostly0 = torch.where(torch.rand(4096, generator=g) < 0.9, 0,
+                          torch.randint(0, 64 * 128 + 1, (4096,),
+                                        generator=g))
+    for keys in (k, mostly0):
+        keys = keys.to(dt)
+        got = rank_cuda.rank6_fused(fused.to(card), keys.to(card)).cpu()
+        assert torch.equal(got, rank_cuda.rank6_fused_plain(fused, keys))
+
+
+def _sw_edges(rng, rows):
+    """Queries at every group size and at the edges of a lane and of a
+    chunk (R = rows a lane holds; up to 6 chunks, more than a block's warps)
+    against targets at and around 256 columns and of ~6,000, half holding a
+    mutated copy of the query, in random order."""
+    qlens = (1, rows, rows + 1, 4 * rows + 1, 8 * rows + 1, 16 * rows + 1,
+             32 * rows, 32 * rows + 1, 96 * rows + 5, 160 * rows + 3)
+    tlens = (1, 255, 256, 257, int(rng.integers(5900, 6100)))
+    qs, ts = [], []
+    for ql in qlens:
+        for tl in tlens:
+            q = rng.integers(0, 4, ql).astype(np.int8)
+            t = rng.integers(0, 4, tl).astype(np.int8)
+            if rng.random() < 0.5:
+                at = int(rng.integers(0, tl))
+                t = np.concatenate([t[:at], q[:tl // 2], t[at:]])[:tl]
+            qs.append(q)
+            ts.append(t)
+    order = rng.permutation(len(qs))
+    return [qs[i] for i in order], [ts[i] for i in order]
+
+
+@pytest.mark.parametrize("scores", [{}, dict(match=2, mismatch=-3, gapo=3,
+                                              gape=1)])
+def test_k2_layout_edges(card, scores):
+    """K2 against its plain version at every group size, query lengths at
+    the edges of a lane and of a chunk (one to six chunks), targets at and
+    around 256 columns and of ~6,000, alone and in one mixed batch with
+    random pairs."""
+    from fermi_tpu_torch.ops import sw_cuda
+
+    def plain(qs, ts):
+        (qc, qo), (tc, to) = sw_cuda.pack(qs), sw_cuda.pack(ts)
+        return sw_cuda.sw_score_batch_plain(
+            *(torch.from_numpy(a).to(card) for a in (qc, qo, tc, to)),
+            **scores).cpu().numpy()
+
+    rng = np.random.default_rng(17)
+    qs, ts = _sw_edges(rng, sw_cuda.ROWS)
+    for q in range(3):
+        got = sw_cuda.sw_score_batch(qs[q::3], ts[q::3], device=card,
+                                     **scores)
+        assert np.array_equal(got, plain(qs[q::3], ts[q::3]))
+    mixed = list(zip(qs, ts)) + [
+        (rng.integers(0, 4, int(rng.integers(1, 300))).astype(np.int8),
+         rng.integers(0, 4, int(rng.integers(1, 600))).astype(np.int8))
+        for _ in range(300)]
+    mixed = [mixed[i] for i in rng.permutation(len(mixed))]
+    mq, mt = [m[0] for m in mixed], [m[1] for m in mixed]
+    got = sw_cuda.sw_score_batch(mq, mt, device=card, **scores)
+    assert np.array_equal(got, plain(mq, mt))
+    with pytest.raises(ValueError, match="gapo"):
+        sw_cuda.sw_score_batch(mq, mt, device=card, gapo=-1)
+
+
 @pytest.fixture(scope="module")
 def pair(card):
     from fermi_tpu_torch.api import build_index
@@ -123,8 +200,8 @@ def test_cli_exact(card, tmp_path):
 
 
 def test_k2_against_plain(card):
-    """K2 on the card against its plain version: random pairs, targets
-    across several warp passes, length-1 and empty sequences."""
+    """K2 on the card against its plain version: random pairs, targets of
+    up to ~5,300 columns, length-1 and empty sequences."""
     from fermi_tpu_torch.ops import sw_cuda
 
     rng = np.random.default_rng(11)
@@ -145,6 +222,15 @@ def test_k2_against_plain(card):
     assert sw_cuda.LAUNCHES["sw_score_batch"] == before + 1
     assert np.array_equal(got, sw_cuda.sw_score_batch(qs, ts, device="cpu"))
     assert got[-3] == 5 and got[-2] == 0 and got[-1] == 0
+    # a plan of some of the pairs runs those; sequences that end before the
+    # plan's offsets are refused
+    (qc, qo), (tc, to) = sw_cuda.pack(qs), sw_cuda.pack(ts)
+    q, t = torch.from_numpy(qc).to(card), torch.from_numpy(tc).to(card)
+    part = sw_cuda.sw_plan(qo[100:201], to[100:201], card)
+    assert np.array_equal(sw_cuda.sw_scores(q, t, part).cpu().numpy(),
+                          got[100:200])
+    with pytest.raises(ValueError, match="reach"):
+        sw_cuda.sw_scores(q[:-1], t, sw_cuda.sw_plan(qo, to, card))
 
 
 @pytest.fixture(scope="module")

@@ -125,3 +125,31 @@ def test_long_query_raises(genome):
     tidx = genome[3]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsm.smem_all(tidx, [dna.encode("ACGT" * 150)])
+
+
+def test_dead_slots_take_key_zero(genome, monkeypatch):
+    """Every rank key of a dead interval slot is 0.  smem_all runs twice:
+    with DEAD_KEY at -1 (no live key is negative) the dead slots of each
+    loop step show; at the default, the same steps must send key 0 there
+    and the same live keys elsewhere; both give fermi_tpu's tuples."""
+    _, seqs, jidx, tidx = genome
+    rank6 = TIndex.rank6
+    runs = {}
+    for dead in (-1, tsm.DEAD_KEY):
+        keys = []
+
+        def tap(self, k, keys=keys):
+            keys.append(k.clone())
+            return rank6(self, k)
+        monkeypatch.setattr(tsm, "DEAD_KEY", dead)
+        monkeypatch.setattr(TIndex, "rank6", tap)
+        runs[dead] = (tsm.smem_all(tidx, seqs), keys)
+    (marked, at_m1), (got, at_0) = runs[-1], runs[0]
+    assert got == marked == jsm.smem_all(jidx, seqs)
+    assert len(at_0) == len(at_m1) > 0
+    n_dead = 0
+    for a, b in zip(at_m1, at_0):
+        dead = a == -1
+        assert (b[dead] == 0).all() and torch.equal(a[~dead], b[~dead])
+        n_dead += int(dead.sum())
+    assert 0 < n_dead < sum(k.numel() for k in at_0)
