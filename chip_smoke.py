@@ -15,19 +15,26 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
 - K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
   query in a 6,000 bp target, longer than one chunk of the kernel's rows);
 - `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
-  ids, and `exact` of 100,000 reads with 1% substitutions; the first 512
+  ids, and `exact` of 40,000 reads with 1% substitutions; the first 512
   queries are searched again on the CPU and must give the same SMEM tuples;
   then K1 on uniform keys at the shape of a loop step, K1 on the keys of
   every loop step of one 4,096-read `exact` batch (dead interval slots at
   fermi_tpu's spread keys and at key 0), and that batch profiled both ways
   (device busy and idle share, device time by kernel);
 - `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
-  of all of them, then of the first 262,144 with the host fix and with the
+  of all of them, then of the first 131,072 with the host fix and with the
   device fix, whose outputs must be byte-equal; the corrected reads are
   compared with the known genome;
 - `build` of the corrected reads and `seqsort`, whose .rank array must be a
   permutation;
-- the collect and seqsort of a 100 kbp window of the reads on the card and
+- `unitig -l 50` of the corrected reads' index (the pipeline's unpaired
+  path), then `clean` and `clean -C -A -O -F -o 60` of its MAG as the
+  pipeline runs them: seconds by part, counts, N50, and the share of unitig
+  bases in unitigs found exactly in the genome; then the link records of
+  one batch of 65,536 of its sequences profiled (device busy and idle
+  share, kernels a round, K1's device time);
+- the collect, seqsort and unitig (with and without the .rank array) of a
+  100 kbp window of the reads, and both cleans of its MAG, on the card and
   on the CPU (the plain versions), which must be equal.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
@@ -68,7 +75,7 @@ N_READS = 1_392_496             # 30x
 N_UNPACK = 1000
 N_CROSS = 512
 N_SW_PAIRS = 65_536
-N_FIX_SUB = 262_144             # reads of the host-vs-device fix rerun
+N_FIX_SUB = 131_072             # reads of the host-vs-device fix rerun
 CROSS_WINDOW = 100_000          # genome bp whose reads the CPU re-checks
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_SMS = 132
@@ -1038,7 +1045,8 @@ def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
 
 def seqsort_phase(workdir, ec_fq, dev):
     """The seqsort path: build of the corrected reads, then `seqsort`
-    through the CLI; the .rank array must be a permutation of the ids."""
+    through the CLI; the .rank array must be a permutation of the ids.
+    Returns the index's path and the K1 launches."""
     from fermi_tpu_torch import rld
 
     dv = ["--device", str(dev)]
@@ -1057,13 +1065,176 @@ def seqsort_phase(workdir, ec_fq, dev):
         raise AssertionError("seqsort: the .rank array is not a permutation")
     log("seqsort", seqs=n_seqs, build_seconds=t_build, seconds=t,
         k1_launches=k1, permutation=True)
+    return dict(fmd=fmd, k1_launches=k1)
+
+
+def mag_seqs(path):
+    """The sequence line of every record of a MAG file."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return [lines[i + 1] for i in range(0, len(lines) - 1, 4)
+            if lines[i].startswith(b"@")]
+
+
+def assembly_stats(seqs):
+    """Unitig count, total bp, N50 and the longest unitig."""
+    lens = sorted((len(s) for s in seqs), reverse=True)
+    total = sum(lens)
+    acc, n50 = 0, 0
+    for n in lens:
+        acc += n
+        if 2 * acc >= total:
+            n50 = n
+            break
+    return dict(unitigs=len(lens), total_bp=total, n50=n50,
+                longest=lens[0] if lens else 0)
+
+
+class GenomeIndex:
+    """Exact occurrence of a sequence in a genome or its reverse complement:
+    the sorted K-mer codes of both strands, each sequence looked up by its
+    first K-mer and compared whole at the hits."""
+
+    K = 31
+
+    def __init__(self, genome):
+        asc = np.frombuffer(b"ACGT", np.uint8)
+        fwd = np.asarray(genome, np.int64)
+        self.strands = [asc[fwd].tobytes(), asc[3 - fwd[::-1]].tobytes()]
+        codes = [self._codes(fwd), self._codes(3 - fwd[::-1])]
+        self.n = len(codes[0])
+        keys = np.concatenate(codes)
+        self.order = np.argsort(keys, kind="stable")
+        self.keys = keys[self.order]
+
+    def _codes(self, a):
+        n = len(a) - self.K + 1
+        c = np.zeros(max(n, 0), np.int64)
+        for j in range(self.K):
+            c = (c << 2) | a[j: j + n]
+        return c
+
+    def occurs(self, s: bytes) -> bool:
+        if len(s) < self.K:
+            return any(s in g for g in self.strands)
+        code = int(self._codes(np.frombuffer(s[: self.K].translate(
+            bytes.maketrans(b"ACGT", b"\0\1\2\3")), np.uint8)
+            .astype(np.int64))[0])
+        lo = np.searchsorted(self.keys, code, "left")
+        hi = np.searchsorted(self.keys, code, "right")
+        for i in self.order[lo:hi]:
+            g, p = divmod(int(i), self.n)
+            if self.strands[g][p: p + len(s)] == s:
+                return True
+        return False
+
+    def exact_share(self, seqs):
+        """The share of the bases of `seqs` in sequences found exactly."""
+        total = sum(len(s) for s in seqs)
+        hit = sum(len(s) for s in seqs if self.occurs(s))
+        return hit / total if total else 0.0
+
+
+def unitig_phase(workdir, fmd, genome, dev, min_match=50):
+    """The unitig path on `dev`: `unitig -l 50` of the corrected reads'
+    index through the CLI (the pipeline's unpaired path: no .rank array),
+    then `clean` and `clean -C -A -O -F -o 60` as the pipeline runs them.
+    Seconds by part from unitig_links.STATS, counts, N50, and the share of
+    unitig bases in unitigs found exactly in the genome before and after
+    clean (which must be at least 99%)."""
+    from fermi_tpu_torch.search import unitig_links as ul
+
+    dv = ["--device", str(dev)]
+    p0, p1, p2 = (os.path.join(workdir, f"p{i}.mag") for i in range(3))
+    reset_launches()
+    t_unitig, _, _ = run_cli(["unitig", *dv, "-l", str(min_match), fmd], p0)
+    k1 = launches()["rank6_fused"]
+    st = dict(ul.STATS)
+    if dev.type == "cuda" and st["k1_launches"] < 1:
+        raise AssertionError("unitig's link records did not launch K1")
+    t_clean1, _, _ = run_cli(["clean", p0], p1)
+    o = str(int(min_match * 1.2 + 0.499))
+    t_clean2, _, _ = run_cli(["clean", "-C", "-A", "-O", "-F", "-o", o, p1],
+                             p2)
+    t0 = time.perf_counter()
+    gi = GenomeIndex(genome)
+    mags = {name: mag_seqs(p) for name, p in (("p0", p0), ("p1", p1),
+                                              ("p2", p2))}
+    share = {k: gi.exact_share(mags[k]) for k in ("p0", "p2")}
+    # the reads come from the genome and nearly all were corrected to it
+    if min(share.values()) < 0.99:
+        raise AssertionError(f"unitig bases found in the genome: {share}")
+    log("unitig", min_match=min_match, seconds=t_unitig,
+        retrieve_s=st["retrieve_s"], walk_s=st["walk_s"],
+        get_nei_s=st["getnei_s"], ladder_s=st["ladder_s"],
+        stitch_s=st["stitch_s"], clean_s=t_clean1, clean2_s=t_clean2,
+        unique_seqs=st["unique"], walk_rounds=st["walk_rounds"],
+        get_nei_rounds=st["getnei_rounds"], ladder_rows=st["ladder_rows"],
+        redo_left=st["redo_left"], stitch_recoveries=st["stitch_recoveries"],
+        k1_launches=k1, links_k1_launches=st["k1_launches"],
+        batch=st["batch"], ladder_batch=st["ladder_batch"],
+        **{f"{name}_{k}": v for name, seqs in mags.items()
+           for k, v in assembly_stats(seqs).items()},
+        p0_exact_share=share["p0"], p2_exact_share=share["p2"],
+        check_seconds=time.perf_counter() - t0)
     return dict(k1_launches=k1)
+
+
+def profile_unitig(fmd, dev, n=1 << 16, min_match=50):
+    """Where the link records of one batch (the first n stored sequences of
+    the index: walk, get_nei, ladder) spend their time on the card: wall
+    time after a warm-up, then once under torch.profiler for the device's
+    busy time, the kernels a round (walk and get_nei rounds) and K1's
+    device time.  The idle share is 1 - device busy time / unprofiled
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import unitig_links as ul
+    from fermi_tpu_torch.search.extend import retrieve_strings
+
+    idx = FMDIndex.restore(fmd, dev)
+    seqs, _ = retrieve_strings(idx, np.arange(n), max_len=1024)
+
+    def run():
+        return ul.compute_links_device(idx, seqs, min_match, device=dev)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(ul.STATS)
+    rounds = st["walk_rounds"] + st["getnei_rounds"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_us, n_dev = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev_us[e.name] = dev_us.get(e.name, 0) + e.time_range.elapsed_us()
+            n_dev += 1
+    busy = sum(dev_us.values()) / 1e6
+    k1 = sum(t for key, t in dev_us.items() if "rank6_fused" in key) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    log("profile_unitig", seqs=n, unique=st["unique"], wall_s=wall,
+        walk_s=st["walk_s"], get_nei_s=st["getnei_s"],
+        ladder_s=st["ladder_s"], walk_rounds=st["walk_rounds"],
+        get_nei_rounds=st["getnei_rounds"], ladder_rows=st["ladder_rows"],
+        k1_launches=st["k1_launches"], host_ms_per_round=1e3 * wall / rounds,
+        device_busy_s=busy if busy else "not measured",
+        idle_share=1 - busy / wall if busy else "not measured",
+        device_ops_per_round=n_dev / rounds, k1_device_s=k1,
+        k1_device_share=k1 / busy if busy else "not measured",
+        top_device_us={k[:60]: v for k, v in top})
 
 
 def cross_check_ec(workdir, win_fq, dev):
     """collect and seqsort of the reads of one genome window on `dev` and on
     the CPU (the plain versions): equal (cls, key, val) sets and equal
-    .rank arrays."""
+    .rank arrays.  Returns the window's index and .rank paths."""
     from fermi_tpu_torch.algos import correct as ec
     from fermi_tpu_torch.algos.seqsort import seqsort
     from fermi_tpu_torch.index.fmd import FMDIndex
@@ -1087,6 +1258,61 @@ def cross_check_ec(workdir, win_fq, dev):
     log("cross_check_ec", window_bp=CROSS_WINDOW, seqs=int(res[0][2].size),
         k=w, kmers=res[0][1][0], collect_equal=True, seqsort_equal=True,
         device_seconds=secs[dev.type], cpu_seconds=secs["cpu"])
+    rank = os.path.join(workdir, "window.rank")
+    res[0][2].tofile(rank)
+    return fmd, rank
+
+
+def cross_check_unitig(workdir, fmd, rank, dev, min_match=50):
+    """unitig of the window's index without and with its .rank array, and
+    both cleans of each MAG: through the CLI on `dev`, and on the CPU (link
+    records computed once, stitched both ways): equal bytes."""
+    from fermi_tpu_torch.algos.unitig_bulk import stitch_native
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import unitig_links as ul
+    from fermi_tpu_torch.search.extend import retrieve_strings
+
+    mm = str(min_match)
+    o = str(int(min_match * 1.2 + 0.499))
+    t0 = time.perf_counter()
+    texts = {}
+    for r in ([], ["-r", rank]):
+        _, texts["dev", bool(r)], _ = run_cli(
+            ["unitig", "--device", str(dev), "-l", mm, *r, fmd])
+    t_dev = time.perf_counter() - t0
+    st = dict(ul.STATS)
+    t0 = time.perf_counter()
+    idx = FMDIndex.restore(fmd, "cpu")
+    seqs, ks = retrieve_strings(idx, np.arange(idx.n_seqs), max_len=1024)
+    store = ul.compute_links_device(idx, seqs, min_match, device="cpu")
+    srt = np.fromfile(rank, np.uint64)
+    for use in (False, True):
+        texts["cpu", use] = stitch_native(idx, store, seqs, ks, min_match,
+                                          srt if use else None)[0]
+    t_cpu = time.perf_counter() - t0
+    cleaned = {}
+    for key, text in texts.items():
+        p0 = os.path.join(workdir, f"w_{key[0]}_{int(key[1])}.mag")
+        with open(p0, "w") as f:
+            f.write(text)
+        _, c1, _ = run_cli(["clean", p0])
+        with open(p0 + ".1", "w") as f:
+            f.write(c1)
+        _, c2, _ = run_cli(["clean", "-C", "-A", "-O", "-F", "-o", o,
+                            p0 + ".1"])
+        cleaned[key] = (c1, c2)
+    for use in (False, True):
+        if texts["dev", use] != texts["cpu", use]:
+            raise AssertionError(f"unitig (rank {use}) differs card vs CPU")
+        if cleaned["dev", use] != cleaned["cpu", use]:
+            raise AssertionError(f"clean (rank {use}) differs card vs CPU")
+    log("cross_check_unitig", window_bp=CROSS_WINDOW, seqs=len(seqs),
+        min_match=min_match, unitigs=texts["dev", False].count("\n+\n"),
+        unitigs_rank=texts["dev", True].count("\n+\n"),
+        cleaned_unitigs=cleaned["dev", False][1].count("\n+\n"),
+        ladder_rows=st["ladder_rows"], redo_left=st["redo_left"],
+        unitig_equal=True, clean_equal=True, device_seconds=t_dev,
+        cpu_seconds=t_cpu)
 
 
 def ptxas_report(jobs):
@@ -1116,7 +1342,7 @@ def ptxas_report(jobs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
-    ap.add_argument("--queries", type=int, default=100_000)
+    ap.add_argument("--queries", type=int, default=40_000)
     ap.add_argument("--against", metavar="TREE", action="append",
                     default=[],
                     help="another checkout of the repository (e.g. the "
@@ -1135,10 +1361,11 @@ def main():
     card_line = gpu_line()
     t0 = time.perf_counter()
     ptxas = ptxas_report([native.rank_job(), native.sw_job()])
-    native.build_all([native.codec_job(), native.ec_job(), native.rank_job(),
-                      native.sw_job()])
+    native.build_all([native.codec_job(), native.ec_job(),
+                      native.unitig_job(), native.rank_job(), native.sw_job()])
     native.get_lib()
     native.get_ec_lib()
+    native.get_unitig_lib()
     rank_cuda.get_lib()
     sw_cuda.get_lib()
     against = [Against(tree) for tree in args.against]
@@ -1170,9 +1397,12 @@ def main():
         torch.cuda.empty_cache()
         ec_res = correct_phase(rng, workdir, dev, res["genome"], N_READS)
         ss = seqsort_phase(workdir, ec_res["ec_fq"], dev)
-        cross_check_ec(workdir, ec_res["win_fq"], dev)
+        ut = unitig_phase(workdir, ss["fmd"], res["genome"], dev)
+        profile_unitig(ss["fmd"], dev)
+        win_fmd, win_rank = cross_check_ec(workdir, ec_res["win_fq"], dev)
+        cross_check_unitig(workdir, win_fmd, win_rank, dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
-                   + ss["k1_launches"])
+                   + ss["k1_launches"] + ut["k1_launches"])
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

@@ -1,9 +1,10 @@
 """fermi-compatible command line of the port: build, unpack, exact,
-correct, seqsort/seqrank.
+correct, seqsort/seqrank, unitig, clean.
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
-mirrors reference main.c.  Each subcommand runs on CUDA unless
-`--device cpu` (or another device) is given.
+mirrors reference main.c.  Each subcommand that queries an index runs on
+CUDA unless `--device cpu` (or another device) is given; `clean` is host
+code, as in fermi_tpu.
 """
 
 import argparse
@@ -200,14 +201,86 @@ def cmd_seqsort(args):
     return 0
 
 
+def _add_unitig(sub):
+    p = sub.add_parser("unitig", help="construct unitigs")
+    p.add_argument("-M", dest="mmap", action="store_true")
+    p.add_argument("-l", dest="min_match", type=int, default=30)
+    p.add_argument("-t", dest="n_threads", type=int, default=1)
+    p.add_argument("-r", dest="rank_file", default=None)
+    _device_arg(p)
+    p.add_argument("fmd")
+    p.set_defaults(func=cmd_unitig)
+
+
+def cmd_unitig(args):
+    """Link records on the device, the native stitch on the host: the MAG
+    text of `unitig -t 1` on stdout."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.algos.unitig_bulk import fm6_unitig_device
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    if args.mmap:
+        return _not_ported("unitig", "-M (mmap index)", "item 3c")
+    if args.n_threads > 1:
+        return _not_ported("unitig", f"-t {args.n_threads} (the threaded "
+                           "host engine)", "item 3c")
+    idx = FMDIndex.restore(args.fmd, device)
+    sorted_arr = None
+    if args.rank_file:
+        sorted_arr = np.fromfile(args.rank_file, np.uint64, idx.n_seqs)
+    fm6_unitig_device(idx, args.min_match, sys.stdout, sorted_arr)
+    return 0
+
+
+def _add_clean(sub):
+    p = sub.add_parser("clean", help="clean the assembly graph")
+    p.add_argument("-F", dest="no_amend", action="store_true")
+    p.add_argument("-C", dest="clean", action="store_true")
+    p.add_argument("-A", dest="aggressive", action="store_true")
+    p.add_argument("-O", dest="read_ori", action="store_true")
+    p.add_argument("-S", dest="no_simpl", action="store_true")
+    p.add_argument("-d", dest="min_dratio0", type=float, default=0.7)
+    p.add_argument("-N", dest="max_arc", type=int, default=512)
+    p.add_argument("-l", dest="min_elen", type=int, default=300)
+    p.add_argument("-e", dest="min_ensr", type=int, default=4)
+    p.add_argument("-i", dest="min_insr", type=int, default=3)
+    p.add_argument("-o", dest="min_ovlp", type=int, default=60)
+    p.add_argument("-n", dest="n_iter", type=int, default=3)
+    p.add_argument("-R", dest="min_dratio1", type=float, default=0.8)
+    p.add_argument("-w", dest="max_bcov", type=float, default=10.0)
+    p.add_argument("-r", dest="max_bfrac", type=float, default=0.15)
+    p.add_argument("mag")
+    p.set_defaults(func=cmd_clean)
+
+
+def cmd_clean(args):
+    """The cleaned MAG graph on stdout (host code)."""
+    from fermi_tpu_torch.algos import mag as M
+
+    opt = dict(M.DEFAULT_OPT)
+    opt.update(flag_no_amend=args.no_amend, flag_clean=args.clean,
+               flag_aggressive=args.aggressive, flag_read_ori=args.read_ori,
+               flag_no_simpl=args.no_simpl, min_dratio0=args.min_dratio0,
+               max_arc=args.max_arc, min_elen=args.min_elen,
+               min_ensr=args.min_ensr, min_insr=args.min_insr,
+               min_ovlp=args.min_ovlp, n_iter=args.n_iter,
+               min_dratio1=args.min_dratio1, max_bcov=args.max_bcov,
+               max_bfrac=args.max_bfrac)
+    g = M.mag_read(args.mag, opt)
+    M.g_clean(g, opt)
+    M.mag_print(g, sys.stdout)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fermi-tpu-torch",
-        description="FMD-index build, search and error correction on CUDA "
-                    "(fermi-compatible CLI)")
+        description="FMD-index build, search, error correction and "
+                    "assembly on CUDA (fermi-compatible CLI)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for add in (_add_build, _add_unpack, _add_exact, _add_correct,
-                _add_seqsort):
+                _add_seqsort, _add_unitig, _add_clean):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

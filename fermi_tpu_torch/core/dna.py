@@ -13,6 +13,10 @@ for _i, _b in enumerate("ACGT"):
 
 NT6_TO_ASCII = np.frombuffer(b"$ACGTN", dtype=np.uint8)
 
+# the same ASCII->nt6 map as a bytes.translate table (C-speed encode of
+# megabase lines without a numpy round-trip)
+NT6_BYTES = NT6_TABLE.tobytes()
+
 
 def encode(seq: bytes | str) -> np.ndarray:
     """ASCII sequence -> nt6 uint8 array."""
@@ -24,3 +28,13 @@ def encode(seq: bytes | str) -> np.ndarray:
 def decode(nt6: np.ndarray) -> str:
     """nt6 array -> ASCII string ($ACGTN)."""
     return NT6_TO_ASCII[np.asarray(nt6, dtype=np.uint8)].tobytes().decode()
+
+
+def comp(nt6: np.ndarray) -> np.ndarray:
+    """Complement: A<->T, C<->G; $ and N fixed."""
+    s = np.asarray(nt6)
+    return np.where((s >= 1) & (s <= 4), 5 - s, s).astype(np.uint8)
+
+
+def revcomp(nt6: np.ndarray) -> np.ndarray:
+    return comp(np.asarray(nt6)[::-1])

@@ -3,15 +3,17 @@
 Shared libraries, each built from one source file of this package into
 fermi_tpu_torch/build/ at first use (the directory is not committed):
 
-  * the RLD\\2 codec (native/rld_codec.cpp) and the error-correction fix
-    engine (native/ec.cpp), plain g++, no torch headers;
+  * the RLD\\2 codec (native/rld_codec.cpp), the error-correction fix
+    engine (native/ec.cpp) and the unitig stitch (native/unitig.cpp with
+    native/fmindex.h), plain g++, no torch headers;
   * the CUDA kernels (csrc/rank.cu, csrc/sw.cu), nvcc for sm_90a, plain C
     interface (ops/rank_cuda.py and ops/sw_cuda.py launch them).
 
-A library's file name carries a hash of its source and build command, so an
-edited source never loads a stale build, and each build lands under a
-temporary name that is renamed into place: concurrent processes (test
-workers) may build the same library at once and still load a whole file.
+A library's file name carries a hash of its source, the headers it
+includes and its build command, so an edited source never loads a stale
+build, and each build lands under a temporary name that is renamed into
+place: concurrent processes (test workers) may build the same library at
+once and still load a whole file.
 `build_all` starts every missing build at once so the compilers overlap.
 """
 
@@ -29,17 +31,20 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 @dataclass(frozen=True)
 class Job:
-    """One shared library: its source, and the compiler command without
-    the output path (`-o <path>` is appended)."""
+    """One shared library: its source, the headers of this package it
+    includes, and the compiler command without the output path (`-o <path>`
+    is appended)."""
     name: str
     source: str
     command: tuple
+    headers: tuple = ()
 
     @property
     def path(self) -> str:
         h = hashlib.sha1()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        for f in (self.source, *self.headers):
+            with open(f, "rb") as fh:
+                h.update(fh.read())
         h.update("\0".join(self.command).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 
@@ -68,11 +73,12 @@ def build_all(jobs) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
 
 
-def _gxx_job(name: str, source: str) -> Job:
+def _gxx_job(name: str, source: str, headers=()) -> Job:
     src = os.path.join(_PKG, "native", source)
     cxx = shutil.which("g++") or "g++"
     return Job(name, src, (cxx, "-O2", "-std=c++17", "-fPIC", "-shared", src,
-                           "-lpthread"))
+                           "-lpthread"),
+               tuple(os.path.join(_PKG, "native", h) for h in headers))
 
 
 def _nvcc() -> str:
@@ -98,6 +104,10 @@ def codec_job() -> Job:
 
 def ec_job() -> Job:
     return _gxx_job("fec", "ec.cpp")
+
+
+def unitig_job() -> Job:
+    return _gxx_job("funitig", "unitig.cpp", ("fmindex.h",))
 
 
 def rank_job() -> Job:
@@ -133,6 +143,17 @@ _SIGNATURES = {
         # fec_device_table(ids i64*, vals i32*, n, logt, mult, max_probe,
         #                  slots i64*, svals i32*) -> 0 ok / 1 probe bound
         "fec_device_table": (_I, [_P, _P, _I64, _I, _U64, _I, _P, _P]),
+    },
+    "funitig": {
+        # funitig_stitch(blocks, occ, n_rows, cnt, n_seqs, min_match, sorted,
+        #                seq_flat, seq_offs, own_ks, valid, ret, intv0,
+        #                has_ovlp, nkb, nkf, nsz, nov, nex, nein, nmax, skb,
+        #                skf, ssz, sbn, sbmax, redo, idt64, out_len*,
+        #                n_recover*) -> malloc'd MAG text
+        "funitig_stitch": (_P, [_P, _P, _I64, _P, _I64, _I, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _P, _P, _P, _P, _I, _P, _I, _P, _P]),
+        "funitig_free": (None, [_P]),
     },
     # the kernels' entries return the cudaError_t of their launch
     "rank_k1": {
@@ -181,3 +202,8 @@ def get_lib() -> ctypes.CDLL:
 def get_ec_lib() -> ctypes.CDLL:
     """The error-correction fix engine (native/ec.cpp), built on first use."""
     return load(ec_job)
+
+
+def get_unitig_lib() -> ctypes.CDLL:
+    """The unitig stitch (native/unitig.cpp), built on first use."""
+    return load(unitig_job)

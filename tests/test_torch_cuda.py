@@ -295,3 +295,62 @@ def test_seqsort_card_vs_cpu(ec_files):
                                        verbose=False))
     assert np.array_equal(np.sort(got >> np.uint64(2)),
                           np.arange(len(got), dtype=np.uint64))
+
+
+
+def test_unitig_card_vs_cpu(card, tmp_path):
+    """Link records (tight primary budgets, so the ladder runs) and the MAG
+    text of `unitig`, with and without a .rank array, on the card equal the
+    CPU's."""
+    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.algos.unitig_bulk import stitch_native
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import unitig_links as ul
+
+    rng = np.random.default_rng(21)
+    genome = rng.integers(0, 4, 3000)
+    reads = []
+    for _ in range(1500):
+        p = int(rng.integers(0, 2900))
+        r = genome[p:p + 100].copy()
+        e = rng.random(100) < 0.004
+        r[e] = (r[e] + 1) % 4
+        if rng.random() < 0.5:
+            r = 3 - r[::-1]
+        reads.append("".join("ACGT"[c] for c in r))
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    rank = str(tmp_path / "i.rank")
+    write_fasta(fa, reads)
+    assert main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+    seqsort(FMDIndex.restore(fmd, card), verbose=False).tofile(rank)
+    stores = []
+    for dev in ("cuda", "cpu"):
+        idx = FMDIndex.restore(fmd, dev)
+        seqs, ks = extend.retrieve_strings(idx, np.arange(idx.n_seqs),
+                                           max_len=1024)
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        stores.append(ul.compute_links_device(idx, seqs, 30, batch=700,
+                                              ladder_batch=50,
+                                              jmax_primary=8, device=dev))
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] > before
+            assert ul.STATS["ladder_rows"] > 0
+    for name, a in vars(stores[0]).items():
+        b = getattr(stores[1], name)
+        for x, y in zip(a, b) if isinstance(a, tuple) else [(a, b)]:
+            if isinstance(x, np.ndarray):
+                assert np.array_equal(x, y), name
+    assert (stitch_native(idx, stores[0], seqs, ks, 30)
+            == stitch_native(idx, stores[1], seqs, ks, 30))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        for r in ([], ["-r", rank]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert main(["unitig", "--device", dev, "-l", "50", *r,
+                             fmd]) == 0
+            outs[dev, bool(r)] = buf.getvalue()
+    assert outs["cuda", False] == outs["cpu", False]
+    assert outs["cuda", True] == outs["cpu", True]
+    assert outs["cuda", False].count("\n+\n") > 3

@@ -54,6 +54,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch.ops.sw_cuda import sw_score_batch
     from fermi_tpu_torch.rld import Runs
     from fermi_tpu_torch.search.ecfix_device import build_device_table
+    from fermi_tpu_torch.search.unitig_links import compute_links_device
 
     bwt = np.array([1, 0, 2], np.uint8)
     fa = tmp_path / "r.fa"
@@ -73,7 +74,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                                         np.zeros(1, np.uint8), 17),
              lambda: main(["correct", str(tmp_path / "x.fmd"), str(fa)]),
              lambda: main(["seqsort", str(tmp_path / "x.fmd")]),
-             lambda: main(["seqrank", str(tmp_path / "x.fmd")])]
+             lambda: main(["seqrank", str(tmp_path / "x.fmd")]),
+             lambda: main(["unitig", str(tmp_path / "x.fmd")]),
+             lambda: compute_links_device(None, [np.ones(40, np.uint8)], 30)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
