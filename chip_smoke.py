@@ -22,7 +22,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   fermi_tpu's spread keys and at key 0), and that batch profiled both ways
   (device busy and idle share, device time by kernel);
 - `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
-  of all of them, then of the first 131,072 with the host fix and with the
+  of all of them, then of the first 65,536 with the host fix and with the
   device fix, whose outputs must be byte-equal; the corrected reads are
   compared with the known genome;
 - `build` of the corrected reads and `seqsort`, whose .rank array must be a
@@ -34,8 +34,24 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   one batch of 65,536 of its sequences profiled (device busy and idle
   share, kernels a round, K1's device time);
 - the collect, seqsort and unitig (with and without the .rank array) of a
-  100 kbp window of the reads, and both cleans of its MAG, on the card and
-  on the CPU (the plain versions), which must be equal.
+  50 kbp window of the reads, and both cleans of its MAG, on the card and
+  on the CPU (the plain versions), which must be equal;
+- the text of the error-free reads through each device builder alone
+  (prefix doubling, the blocked builder: 40 Mi-symbol wsort blocks folded
+  by the gap-bit merge, and BCR), each index byte-equal to `build`'s;
+- run-fermi.pl -B's shape: the reads split into 4 files, each built,
+  `merge` of the 4, and `merge` of 3 then `build -i` of the fourth, both
+  byte-equal to `build` of all of them;
+- `sub` and `sub -c` of the index with 40% of the reads chosen, each
+  byte-equal to `build` of the chosen reads or of the others;
+- contrast of two related samples: sample B's genome has a substitution
+  every 2,000 bp and 10 insertions of 2,000 bp, 30x of its reads are
+  built; `seqsort` of both, `contrast -k 55 -o 3`, `sub` of each side;
+  at least 95% of B's reads inside an insertion are selected, and at
+  least 99% of the selected reads on either side touch a difference;
+- merge, sub, contrast and the three device builders on the reads of a
+  100 kbp window of both genomes (the blocked builder in two blocks), on
+  the card and on the CPU: equal.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -75,8 +91,9 @@ N_READS = 1_392_496             # 30x
 N_UNPACK = 1000
 N_CROSS = 512
 N_SW_PAIRS = 65_536
-N_FIX_SUB = 131_072             # reads of the host-vs-device fix rerun
-CROSS_WINDOW = 100_000          # genome bp whose reads the CPU re-checks
+N_FIX_SUB = 65_536              # reads of the host-vs-device fix rerun
+CROSS_WINDOW = 50_000           # genome bp whose reads the CPU re-checks
+SETOPS_WINDOW = 100_000         # the same for merge, sub, contrast, builders
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_SMS = 132
 # Results per clock per SM for compute capability 9.0 (NVIDIA's CUDA C++
@@ -305,40 +322,48 @@ def k1_parity(rng, dev, clock_hz, n=1 << 20):
     return err
 
 
+def sample_reads(rng, genome, n, err=0.0):
+    """n reads of READ_LEN from random places of genome (nt4 codes), with
+    substitutions at rate err, half reverse-complemented.  Returns (start
+    positions, reads as nt4 codes [n, READ_LEN])."""
+    pos = rng.integers(0, len(genome) - READ_LEN + 1, n)
+    reads = genome[pos[:, None] + np.arange(READ_LEN)]
+    if err:
+        nerr = rng.binomial(READ_LEN, err, n)
+        rid = np.repeat(np.arange(n), nerr)
+        col = rng.integers(0, READ_LEN, rid.size)
+        sub = 1 + rng.integers(0, 3, rid.size)
+        for r, c, s in zip(rid, col, sub):
+            reads[r, c] = (reads[r, c] + s) % 4
+    flip = rng.random(n) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    return pos, reads
+
+
+def write_fasta(path, asc):
+    """ASCII reads [n, READ_LEN] as FASTA records >r0, >r1, ..."""
+    with open(path, "wb") as f:
+        for lo in range(0, len(asc), 65536):
+            f.write(b"".join(b">r%d\n%s\n" % (lo + i, r.tobytes())
+                             for i, r in enumerate(asc[lo: lo + 65536])))
+
+
+ASCII = np.frombuffer(b"ACGT", np.uint8)
+
+
 def make_data(rng, workdir, genome_len, n_reads, n_queries):
     """Random genome, error-free reads (half reverse-complemented) as the
     index input, and queries with 1% substitutions (the recipe of
     bench.py's make_dataset), both as FASTA.  Returns the paths, the reads
-    and the genome."""
+    (ASCII), their start positions and the genome."""
     genome = rng.integers(0, 4, genome_len).astype(np.int8)
-
-    def sample(n, err):
-        pos = rng.integers(0, genome_len - READ_LEN + 1, n)
-        reads = genome[pos[:, None] + np.arange(READ_LEN)]
-        if err:
-            nerr = rng.binomial(READ_LEN, err, n)
-            rid = np.repeat(np.arange(n), nerr)
-            col = rng.integers(0, READ_LEN, rid.size)
-            sub = 1 + rng.integers(0, 3, rid.size)
-            for r, c, s in zip(rid, col, sub):
-                reads[r, c] = (reads[r, c] + s) % 4
-        flip = rng.random(n) < 0.5
-        reads[flip] = 3 - reads[flip, ::-1]
-        return reads
-
-    def write(path, reads):
-        asc = np.frombuffer(b"ACGT", np.uint8)[reads]
-        with open(path, "wb") as f:
-            for lo in range(0, len(asc), 65536):
-                f.write(b"".join(b">r%d\n%s\n" % (lo + i, r.tobytes())
-                                 for i, r in enumerate(asc[lo: lo + 65536])))
-        return asc
-
     reads_fa = os.path.join(workdir, "reads.fa")
     q_fa = os.path.join(workdir, "q.fa")
-    reads = write(reads_fa, sample(n_reads, 0.0))
-    write(q_fa, sample(n_queries, 0.01))
-    return reads_fa, q_fa, reads, genome
+    pos, reads = sample_reads(rng, genome, n_reads)
+    reads = ASCII[reads]
+    write_fasta(reads_fa, reads)
+    write_fasta(q_fa, ASCII[sample_reads(rng, genome, n_queries, 0.01)[1]])
+    return reads_fa, q_fa, reads, pos, genome
 
 
 def run_cli(argv, out_path=None):
@@ -387,8 +412,8 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     from fermi_tpu_torch.search import smem as sm
 
     t0 = time.perf_counter()
-    reads_fa, q_fa, reads, genome = make_data(rng, workdir, genome_len,
-                                              n_reads, n_queries)
+    reads_fa, q_fa, reads, pos, genome = make_data(
+        rng, workdir, genome_len, n_reads, n_queries)
     log("data", genome_bp=genome_len, reads=n_reads, queries=n_queries,
         seconds=time.perf_counter() - t0)
     dv = ["--device", str(dev)]
@@ -453,6 +478,7 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     if on_card and (k1_unpack <= 0 or k1_exact <= 0):
         raise AssertionError("a query phase did not launch K1 on the card")
     return dict(fmd=fmd, q_fa=q_fa, exact_text=exact_text, genome=genome,
+                reads_fa=reads_fa, reads=reads, pos=pos, t_build=t_build,
                 launches=counts, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI)
 
 
@@ -1315,6 +1341,378 @@ def cross_check_unitig(workdir, fmd, rank, dev, min_match=50):
         cpu_seconds=t_cpu)
 
 
+def nt6_text(asc):
+    """The text `build` indexes for ASCII reads [n, READ_LEN] (each read
+    and its reverse complement, sentinel-terminated), and the strands as a
+    list (what BCR takes)."""
+    from fermi_tpu_torch.construct import suffix
+
+    codes = np.zeros(256, np.uint8)
+    codes[np.frombuffer(b"ACGT", np.uint8)] = (1, 2, 3, 4)
+    text = suffix.build_text(list(codes[asc]))
+    ends = np.flatnonzero(text == 0)
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    return text, [text[a:b] for a, b in zip(starts, ends)]
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def write_bwt(bwt, path):
+    from fermi_tpu_torch import rld
+
+    rld.write_fmd(rld.Runs.from_bwt(bwt), path)
+    return path
+
+
+def timed(dev, fn):
+    """fn() and its seconds, the device's work included, with the device's
+    peak memory during the call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def builders_phase(workdir, res, dev):
+    """The text `build` indexed in main_path through each device builder
+    alone: prefix doubling (construct/suffix_device.py, what `build` runs
+    below 2^31 symbols), the blocked builder (40 Mi-symbol wsort blocks
+    folded by the gap-bit merge) and BCR on the strands; the BWTs written
+    as .fmd must equal main_path's index byte for byte.  Returns the K1
+    launches."""
+    from fermi_tpu_torch.construct import bcr_device, blocked
+    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+
+    t0 = time.perf_counter()
+    text, strands = nt6_text(res["reads"])
+    prep_s = time.perf_counter() - t0
+    out = {}
+    bwt, out["doubling_s"], out["doubling_peak_gb"] = timed(
+        dev, lambda: multistring_bwt_device(text, dev))
+    ok = same_bytes(write_bwt(bwt, os.path.join(workdir, "pd.fmd")),
+                    res["fmd"])
+    del bwt
+    reset_launches()
+    bwt, out["blocked_s"], out["blocked_peak_gb"] = timed(
+        dev, lambda: blocked.device_build_text(text, device=dev))
+    k1 = launches()["rank6_fused"]
+    ok_blk = same_bytes(write_bwt(bwt, os.path.join(workdir, "blk.fmd")),
+                        res["fmd"])
+    del bwt
+    bwt, out["bcr_s"], out["bcr_peak_gb"] = timed(
+        dev, lambda: bcr_device.bcr_bwt_device(strands, device=dev))
+    ok_bcr = same_bytes(write_bwt(bwt, os.path.join(workdir, "bcr.fmd")),
+                        res["fmd"])
+    del bwt, strands
+    st = dict(blocked.STATS)
+    for k in list(out):
+        if k.endswith("_gb"):
+            out[k] /= 2**30
+    log("builders", msym=text.size / 1e6, seqs=int((text == 0).sum()),
+        set_up_s=prep_s, **out, blocks=st["blocks"],
+        block_symbols=blocked.BLOCK_SYMBOLS, sort_s=st["sort_s"],
+        merge_s=st["merge_s"], merge_steps=st["merge_steps"],
+        k1_launches=k1, cli_build_s=res["t_build"], doubling_equal=ok,
+        blocked_equal=ok_blk, bcr_equal=ok_bcr)
+    if not (ok and ok_blk and ok_bcr):
+        raise AssertionError("an index built alone differs from build's")
+    if k1 < 1:
+        raise AssertionError("the blocked builder did not launch K1")
+    return k1
+
+
+@contextlib.contextmanager
+def fold_log():
+    """Each compute_gap_bits call's seconds, walk steps, lanes and K1
+    launches, appended to the list this yields."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    folds, orig = [], mg.compute_gap_bits
+
+    def logged(e0, e1, **kw):
+        before = launches()["rank6_fused"]
+        bits = orig(e0, e1, **kw)
+        folds.append(dict(seconds=mg.STATS["seconds"],
+                          steps=mg.STATS["steps"], lanes=mg.STATS["lanes"],
+                          batch=mg.STATS["batch"],
+                          chunk_steps=mg.STATS["chunk_steps"],
+                          k1_launches=launches()["rank6_fused"] - before))
+        return bits
+    mg.compute_gap_bits = logged
+    try:
+        yield folds
+    finally:
+        mg.compute_gap_bits = orig
+
+
+def merge_phase(workdir, res, dev, parts=4):
+    """run-fermi.pl -B's shape: the error-free reads split into `parts`
+    contiguous files, each built, then `merge` of all of them, and `merge`
+    of all but the last followed by `build -i` of the last: both must
+    equal main_path's index byte for byte.  Returns the K1 launches."""
+    dv = ["--device", str(dev)]
+    reads = res["reads"]
+    cut = np.linspace(0, len(reads), parts + 1).astype(np.int64)
+    fas, fmds = [], []
+    t_build = 0.0
+    for i in range(parts):
+        fa = os.path.join(workdir, f"part{i}.fa")
+        write_fasta(fa, reads[cut[i]: cut[i + 1]])
+        fmds.append(os.path.join(workdir, f"part{i}.fmd"))
+        t_build += run_cli(["build", *dv, "-fo", fmds[i], fa])[0]
+        fas.append(fa)
+    out = {}
+    all_fmd = os.path.join(workdir, "merged.fmd")
+    reset_launches()
+    with fold_log() as folds:
+        out["merge_s"] = run_cli(["merge", *dv, "-fo", all_fmd, *fmds])[0]
+    k1 = launches()["rank6_fused"]
+    head = os.path.join(workdir, "merged_head.fmd")
+    app = os.path.join(workdir, "appended.fmd")
+    with fold_log() as folds_i:
+        out["merge_head_s"] = run_cli(["merge", *dv, "-fo", head,
+                                       *fmds[:-1]])[0]
+        out["append_s"] = run_cli(["build", *dv, "-fo", app, "-i", head,
+                                   fas[-1]])[0]
+    k1_all = launches()["rank6_fused"]
+    ok = same_bytes(all_fmd, res["fmd"]), same_bytes(app, res["fmd"])
+    log("merge", parts=parts, part_build_s=t_build, **out, folds=folds,
+        head_and_append_folds=folds_i, k1_launches_merge=k1,
+        k1_launches=k1_all, merged_equal=ok[0], appended_equal=ok[1])
+    if not all(ok):
+        raise AssertionError(f"merged / appended index differs: {ok}")
+    if k1 < 1 or k1_all <= k1:
+        raise AssertionError("merge or build -i did not launch K1")
+    return k1_all
+
+
+@contextlib.contextmanager
+def fd_stdout(path):
+    """File descriptor 1 (where the native codec writes `-`) to path."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def run_sub(dv, fmd, bits, out_path, comp=False):
+    """`sub` through the CLI, its .fmd bytes (written to stdout by the
+    native codec) to out_path; returns its seconds."""
+    with fd_stdout(out_path):
+        t = run_cli(["sub", *dv, *(["-c"] if comp else []), fmd, bits])[0]
+    return t
+
+
+def sub_phase(rng, workdir, res, dev, share=0.4):
+    """`sub` and `sub -c` of main_path's index with `share` of the reads
+    chosen (both strands together): each must equal `build` of the chosen
+    reads, or of the others, byte for byte.  Returns the K1 launches."""
+    from fermi_tpu_torch.algos import sub as sb
+
+    dv = ["--device", str(dev)]
+    reads = res["reads"]
+    sel = rng.random(len(reads)) < share
+    bits = os.path.join(workdir, "sel.bits")
+    sb.pack_bitfile(bits, np.repeat(sel, 2))
+    out, ok, k1 = {}, [], 0
+    for comp, chosen in ((False, sel), (True, ~sel)):
+        tag = "sub_c" if comp else "sub"
+        got = os.path.join(workdir, f"{tag}.fmd")
+        reset_launches()
+        out[f"{tag}_s"] = run_sub(dv, res["fmd"], bits, got, comp)
+        k1 += launches()["rank6_fused"]
+        out[f"{tag}_steps"] = sb.STATS["steps"]
+        out[f"{tag}_walk_s"] = sb.STATS["seconds"]
+        fa = os.path.join(workdir, f"{tag}.fa")
+        write_fasta(fa, reads[chosen])
+        want = os.path.join(workdir, f"{tag}_build.fmd")
+        out[f"{tag}_build_s"] = run_cli(["build", *dv, "-fo", want, fa])[0]
+        ok.append(same_bytes(got, want))
+    log("sub", reads_chosen=int(sel.sum()), reads=len(reads), **out,
+        k1_launches=k1, sub_equal=ok[0], sub_c_equal=ok[1])
+    if not all(ok):
+        raise AssertionError(f"sub index differs from build: {ok}")
+    if k1 < 1:
+        raise AssertionError("sub did not launch K1")
+    return k1
+
+
+SNP_EVERY = 2000                # sample B: one substitution per 2,000 bp
+N_INSERTS = 10                  # and 10 private insertions
+INSERT_LEN = 2000
+
+
+def sample_b(rng, genome):
+    """Genome B: the genome with one substitution per SNP_EVERY bp and
+    N_INSERTS random insertions of INSERT_LEN bp.  Returns B, its SNP
+    positions and insertion intervals in B's coordinates, the SNP
+    positions and insertion points in A's, and the map of an A position
+    to B's."""
+    g = len(genome)
+    snp_a = np.sort(rng.choice(g, g // SNP_EVERY, replace=False))
+    mutated = genome.copy()
+    mutated[snp_a] = (mutated[snp_a] + rng.integers(1, 4, snp_a.size)) % 4
+    ins_a = np.sort(rng.choice(np.arange(1, g), N_INSERTS, replace=False))
+    pieces, last = [], 0
+    for a in ins_a:
+        pieces += [mutated[last:a],
+                   rng.integers(0, 4, INSERT_LEN).astype(genome.dtype)]
+        last = a
+    pieces.append(mutated[last:])
+    b = np.concatenate(pieces)
+
+    def to_b(x):                # position x of A in B (inserted before a)
+        return x + INSERT_LEN * np.searchsorted(ins_a, x, "right")
+    ins_b = ins_a + INSERT_LEN * np.arange(N_INSERTS)
+    return dict(genome=b, snp_b=to_b(snp_a), ins_b=ins_b, snp_a=snp_a,
+                ins_a=ins_a, to_b=to_b)
+
+
+def holds(pos, points, lo=0):
+    """Reads at `pos` that hold one of the sorted `points` in
+    [pos + lo, pos + READ_LEN)."""
+    return (np.searchsorted(points, pos + READ_LEN, "left")
+            > np.searchsorted(points, pos + lo, "left"))
+
+
+def contrast_phase(rng, workdir, res, dev, kmer=55, min_occ=3):
+    """Contrast of two related samples, the contrast assembly's shape:
+    sample A is main_path's reads, sample B 30x of error-free reads of
+    genome B (sample_b).  `build` of B, `seqsort` of both, `contrast -k
+    55 -o 3`, then `sub` of each side's selection.  Gates: at least 95%
+    of B's reads lying wholly inside an insertion are selected on B's
+    side, and at least 99% of the reads selected on either side touch a
+    difference (a SNP, an insertion, or for A an insertion point inside
+    the read).  Returns the K1 launches and what the window check needs."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import contrast as ct
+    from fermi_tpu_torch.algos import sub as sb
+
+    dv = ["--device", str(dev)]
+    t0 = time.perf_counter()
+    B = sample_b(rng, res["genome"])
+    n_b = len(B["genome"]) * 30 // READ_LEN
+    pos_b, reads_b = sample_reads(rng, B["genome"], n_b)
+    reads_b = ASCII[reads_b]
+    fa_b = os.path.join(workdir, "b.fa")
+    write_fasta(fa_b, reads_b)
+    set_up_s = time.perf_counter() - t0
+    fmd_b = os.path.join(workdir, "b.fmd")
+    t_build = run_cli(["build", *dv, "-fo", fmd_b, fa_b])[0]
+    ranks, t_sort = [], 0.0
+    for tag, fmd in (("a", res["fmd"]), ("b", fmd_b)):
+        ranks.append(os.path.join(workdir, f"{tag}.rank"))
+        t_sort += run_cli(["seqsort", *dv, fmd], ranks[-1])[0]
+    subs = [os.path.join(workdir, f"{t}.sub") for t in ("a", "b")]
+    reset_launches()
+    t_con, _, err = run_cli(["contrast", *dv, "-k", str(kmer), "-o",
+                             str(min_occ), res["fmd"], ranks[0], subs[0],
+                             fmd_b, ranks[1], subs[1]])
+    k1 = launches()["rank6_fused"]
+    st = dict(ct.STATS)
+    sel = [sb.unpack_bitfile(p)[0::2] for p in subs]
+    t_sub, sub_seqs = 0.0, []
+    for tag, fmd, bits in (("a", res["fmd"], subs[0]),
+                           ("b", fmd_b, subs[1])):
+        out = os.path.join(workdir, f"{tag}_sel.fmd")
+        t_sub += run_sub(dv, fmd, bits, out)
+        sub_seqs.append(rld.read_fmd(out).n_seqs)
+    k1_sub = launches()["rank6_fused"] - k1
+    inside = np.zeros(n_b, bool)
+    for s in B["ins_b"]:
+        inside |= (pos_b >= s) & (pos_b + READ_LEN <= s + INSERT_LEN)
+    # an A read differs where it holds a SNP or an insertion point (bases
+    # on both sides of it), a B read where it holds a SNP or inserted bases
+    diff_a = holds(res["pos"], B["snp_a"]) | holds(res["pos"], B["ins_a"], 1)
+    diff_b = holds(pos_b, B["snp_b"]) | holds(pos_b, B["ins_b"],
+                                              1 - INSERT_LEN)
+    inside_share = float(sel[1][inside].mean())
+    touch_share = [float(diff[s].mean()) if s.any() else 1.0
+                   for diff, s in ((diff_a, sel[0]), (diff_b, sel[1]))]
+    log("contrast", genome_b_bp=len(B["genome"]), snps=len(B["snp_a"]),
+        inserts=N_INSERTS, reads_b=n_b, set_up_s=set_up_s,
+        build_b_s=t_build, seqsort_s=t_sort, kmer=kmer, min_occ=min_occ,
+        seconds=t_con, bfs_s=st["bfs_s"], tips_s=st["tips_s"],
+        levels=st["levels"], max_frontier=st["max_frontier"],
+        tip_levels=st["tip_levels"], tip_roots=st["tip_roots"],
+        k1_launches=k1, selected_a=int(sel[0].sum()),
+        selected_b=int(sel[1].sum()),
+        cli_says=re.findall(r"(\d+) reads selected", err),
+        reads_inside_inserts=int(inside.sum()),
+        inside_selected_share=inside_share,
+        selected_touching_share_a=touch_share[0],
+        selected_touching_share_b=touch_share[1],
+        sub_s=t_sub, sub_seqs=sub_seqs, sub_k1_launches=k1_sub)
+    if inside_share < 0.95 or min(touch_share) < 0.99:
+        raise AssertionError("contrast gates failed")
+    if sub_seqs != [2 * int(s.sum()) for s in sel]:
+        raise AssertionError("sub of the selection holds other reads")
+    if k1 < 1 or k1_sub < 1:
+        raise AssertionError("contrast or its sub did not launch K1")
+    return dict(k1_launches=k1 + k1_sub, B=B, pos_b=pos_b, reads_b=reads_b)
+
+
+def cross_check_setops(workdir, res, con, dev, window=SETOPS_WINDOW):
+    """merge, sub, contrast and the three device builders on the reads of
+    a window of both genomes (window bp of A from a point 50 kbp before
+    B's first insertion, the matching stretch of B with that insertion),
+    on `dev` and on the CPU (the plain versions): equal bits and BWTs."""
+    from fermi_tpu_torch.algos import contrast, merge, sub
+    from fermi_tpu_torch.construct import bcr_device, blocked, wsort
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    B = con["B"]
+    a0 = max(int(B["ins_a"][0]) - window // 2, 0)
+    a1 = a0 + window
+    b0, b1 = int(B["to_b"](a0)), int(B["to_b"](a1))
+    fmds = []
+    for tag, pos, reads, lo, hi in (
+            ("a", res["pos"], res["reads"], a0, a1),
+            ("b", con["pos_b"], con["reads_b"], b0, b1)):
+        fa = os.path.join(workdir, f"w{tag}.fa")
+        write_fasta(fa, reads[(pos >= lo) & (pos <= hi - READ_LEN)])
+        fmds.append(os.path.join(workdir, f"w{tag}.fmd"))
+        run_cli(["build", "--device", str(dev), "-fo", fmds[-1], fa])
+    text, strands = nt6_text(res["reads"][(res["pos"] >= a0)
+                                          & (res["pos"] <= a1 - READ_LEN)])
+    blk = text.size // 2 + 1          # two blocks: one fold
+    out, secs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        e0, e1 = FMDIndex.restore(fmds[0], d), FMDIndex.restore(fmds[1], d)
+        ids = np.flatnonzero(np.arange(e0.n_seqs) % 5 < 2)
+        r = [merge.compute_gap_bits(e0, e1).cpu().numpy(),
+             sub.mark_read_positions(e0, ids, e0.total).cpu().numpy(),
+             *contrast.fm6_contrast(e0, e1, 55, 3),
+             wsort.wsort_bwt(text, device=d),
+             blocked.device_build_text(text, block_symbols=blk, device=d),
+             bcr_device.bcr_bwt_device(strands, device=d)]
+        secs[d.type] = time.perf_counter() - t0
+        out[d.type] = r
+    names = ("gap_bits", "sub_bits", "contrast_a", "contrast_b", "wsort",
+             "blocked", "bcr")
+    bad = [n for n, x, y in zip(names, out[dev.type], out["cpu"])
+           if not np.array_equal(x, y)]
+    log("cross_check_setops", window_bp=window, a_from=a0, b_from=b0,
+        seqs=[int(x.size) for x in out["cpu"][2:4]],
+        msym_text=text.size / 1e6, blocks=blocked.STATS["blocks"],
+        selected=[int(out["cpu"][2].sum()), int(out["cpu"][3].sum())],
+        equal=not bad, differ=bad, device_seconds=secs[dev.type],
+        cpu_seconds=secs["cpu"])
+    if bad:
+        raise AssertionError(f"card and CPU differ: {bad}")
+
+
 def ptxas_report(jobs):
     """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
     flags, output discarded); returns a function that waits and gives, per
@@ -1401,8 +1799,14 @@ def main():
         profile_unitig(ss["fmd"], dev)
         win_fmd, win_rank = cross_check_ec(workdir, ec_res["win_fq"], dev)
         cross_check_unitig(workdir, win_fmd, win_rank, dev)
+        setops = [builders_phase(workdir, res, dev),
+                  merge_phase(workdir, res, dev),
+                  sub_phase(rng, workdir, res, dev)]
+        con = contrast_phase(rng, workdir, res, dev)
+        setops.append(con["k1_launches"])
+        cross_check_setops(workdir, res, con, dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
-                   + ss["k1_launches"] + ut["k1_launches"])
+                   + ss["k1_launches"] + ut["k1_launches"] + sum(setops))
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

@@ -1,10 +1,11 @@
-"""fermi-compatible command line of the port: build, unpack, exact,
-correct, seqsort/seqrank, unitig, clean.
+"""fermi-compatible command line of the port: build (and build -i),
+unpack, exact, correct, seqsort/seqrank, unitig, clean, merge, sub,
+contrast, bitand, recode.
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
 mirrors reference main.c.  Each subcommand that queries an index runs on
-CUDA unless `--device cpu` (or another device) is given; `clean` is host
-code, as in fermi_tpu.
+CUDA unless `--device cpu` (or another device) is given; `clean`, `bitand`
+and `recode` are host code, as in fermi_tpu.
 """
 
 import argparse
@@ -47,15 +48,15 @@ def _add_build(sub):
 
 
 def cmd_build(args):
+    """The index of the reads, sorted on the device; with -i, the index
+    of an existing index's reads followed by these (the reference's
+    fm_append, merge.c:139-209), merged on the device."""
     import os
     from fermi_tpu_torch import resolve_device, rld
     from fermi_tpu_torch.core import dna, fastx
     from fermi_tpu_torch.construct import suffix
-    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
 
     device = resolve_device(args.device)
-    if args.append_to:
-        return _not_ported("build", "-i (append)", "item 9, merge")
     if args.out != "-" and not args.force and os.path.exists(args.out):
         sys.stderr.write(f"[E::build] File `{args.out}' exists. Use -f to overwrite.\n")
         return 1
@@ -66,9 +67,27 @@ def cmd_build(args):
             s = s[: args.max_len]
         seqs.append(s)
     text = suffix.build_text(seqs, trim_palindrome=not args.no_trim_pal)
-    runs = rld.Runs.from_bwt(multistring_bwt_device(text, device))
-    rld.write_fmd(runs, args.out, sbits=args.sbits)
+    bwt = _device_bwt(text, device)
+    if args.append_to:
+        from fermi_tpu_torch.algos import merge as mg
+        from fermi_tpu_torch.index.fmd import FMDIndex
+
+        e0 = FMDIndex.restore(args.append_to, device)
+        e1 = FMDIndex.from_bwt(bwt, device)
+        bwt = mg.merge_bwts(e0.bwt(), e1.bwt(), mg.compute_gap_bits(e0, e1))
+        bwt = bwt.cpu().numpy()
+    rld.write_fmd(rld.Runs.from_bwt(bwt), args.out, sbits=args.sbits)
     return 0
+
+
+def _device_bwt(text, device):
+    """The BWT of a text on `device`: prefix doubling, or the blocked
+    builder for texts too long for its packed sort key."""
+    from fermi_tpu_torch.construct import blocked, suffix_device
+
+    if text.size >= suffix_device.MAX_TEXT:
+        return blocked.device_build_text(text, device=device)
+    return suffix_device.multistring_bwt_device(text, device)
 
 
 def _add_unpack(sub):
@@ -273,6 +292,150 @@ def cmd_clean(args):
     return 0
 
 
+def _add_merge(sub):
+    p = sub.add_parser("merge", help="merge multiple FMD-indexes")
+    p.add_argument("-f", dest="force", action="store_true")
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="accepted for compatibility; the walks run on "
+                        "the device")
+    p.add_argument("-o", dest="out", default="-")
+    _device_arg(p)
+    p.add_argument("fmds", nargs="+")
+    p.set_defaults(func=cmd_merge)
+
+
+def cmd_merge(args):
+    """The indexes folded left to right, each merge on the device."""
+    import os
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    if args.out != "-" and not args.force and os.path.exists(args.out):
+        sys.stderr.write(f"[E::merge] File `{args.out}' exists. Use -f.\n")
+        return 1
+    e0 = FMDIndex.restore(args.fmds[0], device)
+    bwt = e0.bwt()
+    for fn in args.fmds[1:]:
+        if e0 is None:
+            e0 = FMDIndex._from_symbols(bwt)
+        e1 = FMDIndex.restore(fn, device)
+        bwt = mg.merge_bwts(bwt, e1.bwt(), mg.compute_gap_bits(e0, e1))
+        e0 = e1 = None              # freed before the next rebuild
+        sys.stderr.write(f"[M::merge] merged `{fn}'\n")
+    rld.write_fmd(rld.Runs.from_bwt(bwt.cpu().numpy()), args.out)
+    return 0
+
+
+def _add_sub(sub):
+    p = sub.add_parser("sub", help="extract sub-index with a bit array")
+    p.add_argument("-c", dest="is_comp", action="store_true")
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="accepted for compatibility; the walks run on "
+                        "the device")
+    _device_arg(p)
+    p.add_argument("fmd")
+    p.add_argument("bits")
+    p.set_defaults(func=cmd_sub)
+
+
+def cmd_sub(args):
+    """The sub-index of the reads whose bit is set (-c: not set) as .fmd
+    bytes on stdout."""
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.algos.sub import fm_sub, unpack_bitfile
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    runs = rld.read_fmd(args.fmd)
+    bits = unpack_bitfile(args.bits)
+    if len(bits) != runs.n_seqs:
+        sys.stderr.write("[E::sub] unmatched index and the bit array\n")
+        return 1
+    bwt = runs.expand()
+    out = fm_sub(FMDIndex.from_runs(runs, device), bwt, bits, args.is_comp)
+    rld.write_fmd(rld.Runs.from_bwt(out), "-")
+    return 0
+
+
+def _add_contrast(sub):
+    p = sub.add_parser("contrast", help="compare two FMD-indexes")
+    p.add_argument("-k", dest="kmer", type=int, default=55)
+    p.add_argument("-o", dest="min_occ", type=int, default=3)
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="accepted for compatibility; the BFS runs on "
+                        "the device")
+    _device_arg(p)
+    p.add_argument("args", nargs=6,
+                   metavar="idx1.fmd idx1.rank 1-2.sub idx2.fmd idx2.rank 2-1.sub")
+    p.set_defaults(func=cmd_contrast)
+
+
+def cmd_contrast(args):
+    """The reads of each index that carry a k-mer absent from the other,
+    as a bit file per index (read-id space, through its .rank array)."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.algos.contrast import fm6_contrast, sub_conv
+    from fermi_tpu_torch.algos.sub import pack_bitfile
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    f0, r0, o0, f1, r1, o1 = args.args
+    sub0, sub1 = fm6_contrast(FMDIndex.restore(f0, device),
+                              FMDIndex.restore(f1, device), args.kmer,
+                              args.min_occ)
+    for fmd, rank_fn, out_fn, s in ((f0, r0, o0, sub0), (f1, r1, o1, sub1)):
+        sel = sub_conv(s, np.fromfile(rank_fn, np.uint64, len(s)))
+        sys.stderr.write(
+            f"[M::contrast] {int(sel.sum())} reads selected from {fmd}\n")
+        with open(out_fn, "wb") as fp:
+            pack_bitfile(fp, sel)
+    return 0
+
+
+def _add_bitand(sub):
+    p = sub.add_parser("bitand", help="intersect bit arrays")
+    p.add_argument("bits", nargs="+")
+    p.set_defaults(func=cmd_bitand)
+
+
+def cmd_bitand(args):
+    """The intersection of bit files on stdout (host code)."""
+    from fermi_tpu_torch.algos.sub import pack_bitfile, unpack_bitfile
+
+    acc = unpack_bitfile(args.bits[0])
+    sys.stderr.write(f"[M::bitand] loaded `{args.bits[0]}' containing "
+                     f"{int(acc.sum())} bits\n")
+    for fn in args.bits[1:]:
+        b = unpack_bitfile(fn)
+        sys.stderr.write(f"[M::bitand] loaded `{fn}' containing "
+                         f"{int(b.sum())} bits\n")
+        if len(b) != len(acc):
+            sys.stderr.write("[E::bitand] unequal array length\n")
+            return 1
+        acc &= b
+    sys.stderr.write(f"[M::bitand] the output contains {int(acc.sum())} bits\n")
+    sys.stdout.flush()
+    pack_bitfile(sys.stdout.buffer, acc)
+    sys.stdout.buffer.flush()
+    return 0
+
+
+def _add_recode(sub):
+    p = sub.add_parser("recode", help="recode FM-index")
+    p.add_argument("fmd")
+    p.set_defaults(func=cmd_recode)
+
+
+def cmd_recode(args):
+    """The index re-encoded, .fmd bytes on stdout (host code)."""
+    from fermi_tpu_torch import rld
+
+    rld.write_fmd(rld.read_fmd(args.fmd), "-")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fermi-tpu-torch",
@@ -280,7 +443,8 @@ def main(argv=None):
                     "assembly on CUDA (fermi-compatible CLI)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for add in (_add_build, _add_unpack, _add_exact, _add_correct,
-                _add_seqsort, _add_unitig, _add_clean):
+                _add_seqsort, _add_unitig, _add_clean, _add_merge, _add_sub,
+                _add_contrast, _add_bitand, _add_recode):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

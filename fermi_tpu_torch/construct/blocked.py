@@ -1,0 +1,108 @@
+"""Blocked device BWT construction: wsort blocks folded by the gap-bit merge.
+
+The port of fermi_tpu/construct/blocked.py.  The reference scales index
+construction by splitting the reads into blocks, building each block's
+BWT and merging (run-fermi.pl:108-121: splitfa, build x N, merge); here:
+
+  * each block's multi-string BWT is one wsort (construct/wsort.py) on
+    the device, so the block size caps the sort's memory however large
+    the text;
+  * the blocks are folded left to right with the gap-bit merge
+    (algos/merge.py, two K1 launches a walk step), and the accumulated
+    index is rebuilt on the device between folds.
+
+Blocks partition the reads in order and a merge puts e1's reads after
+e0's, so sentinel order is kept (merge.c:175); the result is byte-identical
+to the whole-text sort at any block size.  The merge keeps each index in
+its own integer domain, so the accumulated index may pass 2^31 symbols
+while its blocks stay int32.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from fermi_tpu_torch import resolve_device
+from fermi_tpu_torch.algos import merge as mg
+from fermi_tpu_torch.construct import wsort
+from fermi_tpu_torch.index.fmd import FMDIndex
+
+BLOCK_SYMBOLS = 40 << 20
+
+# Counters of the last build, for measurement (the chip smoke test reads
+# them): blocks, seconds sorting, seconds merging (index rebuilds
+# included), walk steps of the merges.
+STATS = {"blocks": 0, "sort_s": 0.0, "merge_s": 0.0, "merge_steps": 0}
+
+
+def _block_slices(lens: np.ndarray, block_symbols: int):
+    """Partition reads (in order) into blocks of <= block_symbols symbols
+    (sentinels included); a single oversized read gets its own block."""
+    cum = np.concatenate([[0], np.cumsum(np.asarray(lens, np.int64) + 1)])
+    out, s = [], 0
+    while s < len(lens):
+        e = int(np.searchsorted(cum, cum[s] + block_symbols, "right")) - 1
+        e = max(e, s + 1)
+        out.append((s, e))
+        s = e
+    return out
+
+
+def device_build_bwt(seqs: list[np.ndarray],
+                     block_symbols: int = BLOCK_SYMBOLS,
+                     device=None) -> np.ndarray:
+    """Multi-string BWT of nt6 reads (already strand-expanded, in final
+    sentinel order), built on `device` in blocks.  Byte-identical to
+    construct.suffix's SA rule over the same text."""
+    if not seqs:
+        return np.zeros(0, np.uint8)
+    lens = np.array([len(s) for s in seqs], np.int64)
+    if (lens == 0).any():
+        raise ValueError("empty read")
+    text = np.zeros(int(lens.sum()) + len(seqs), np.uint8)
+    text[np.arange(int(lens.sum())) + np.repeat(np.arange(len(seqs)), lens)] \
+        = np.concatenate(seqs)
+    return device_build_text(text, block_symbols, device)
+
+
+def device_build_text(text: np.ndarray, block_symbols: int = BLOCK_SYMBOLS,
+                      device=None) -> np.ndarray:
+    """device_build_bwt over an already concatenated sentinel-terminated
+    text (what `build` hands over)."""
+    dev = resolve_device(device)
+    text = np.asarray(text, np.uint8)
+    STATS.update(blocks=0, sort_s=0.0, merge_s=0.0, merge_steps=0)
+    if text.size == 0:
+        return np.zeros(0, np.uint8)
+    if text[-1] != 0:
+        raise ValueError("text must end with a sentinel")
+    t = torch.from_numpy(text).to(dev)
+    ends = torch.nonzero(t == 0)[:, 0].cpu().numpy()
+    lens = np.diff(ends, prepend=-1) - 1
+    max_len = int(lens.max())
+    starts = np.concatenate([[0], ends + 1])
+    blocks = _block_slices(lens, block_symbols)
+    STATS["blocks"] = len(blocks)
+    acc = None
+    for bi, (lo, hi) in enumerate(blocks):
+        t0 = _sync_clock(dev)
+        bwt = wsort._wsort_text(t[starts[lo]: starts[hi]], max_len)
+        t1 = _sync_clock(dev)
+        STATS["sort_s"] += t1 - t0
+        if acc is None:
+            acc = bwt
+            continue
+        bits = mg.compute_gap_bits(FMDIndex._from_symbols(acc),
+                                   FMDIndex._from_symbols(bwt))
+        STATS["merge_steps"] += mg.STATS["steps"]
+        acc = mg.merge_bwts(acc, bwt, bits)
+        del bits
+        STATS["merge_s"] += _sync_clock(dev) - t1
+    return acc.cpu().numpy()
+
+
+def _sync_clock(dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()

@@ -99,9 +99,12 @@ class FMDIndex:
                             device=dev)
         padded[:n] = bwt
         blocks = padded.view(nb + 1, BLOCK)
-        hist = torch.stack([(blocks == c).sum(1) for c in range(6)], 1)
+        # [6, nb + 1]: each symbol's counts contiguous, so the running sum
+        # is a scan along the innermost dimension (a scan along the outer
+        # one runs one sequential thread per column on CUDA)
+        hist = torch.stack([(blocks == c).sum(1) for c in range(6)], 0)
         occ = torch.zeros((nb + 1, 8), dtype=torch.int64, device=dev)
-        occ[1:, :6] = torch.cumsum(hist[:-1], 0)
+        occ[1:, :6] = torch.cumsum(hist[:, :-1], 1).T
         del hist
         # the final row is all pad, so occ[nb] holds the full totals
         totals = occ[nb, :6].cpu().numpy()
@@ -197,6 +200,10 @@ class FMDIndex:
     @property
     def device(self) -> torch.device:
         return self.occ.device
+
+    def bwt(self) -> torch.Tensor:
+        """The BWT's symbols, uint8 [total] (a view of the blocks)."""
+        return self.bwt_blocks.view(-1)[: self.total]
 
     # -- core queries (all batched over leading axes) ----------------------
 

@@ -354,3 +354,96 @@ def test_unitig_card_vs_cpu(card, tmp_path):
     assert outs["cuda", False] == outs["cpu", False]
     assert outs["cuda", True] == outs["cpu", True]
     assert outs["cuda", False].count("\n+\n") > 3
+
+
+@pytest.fixture(scope="module")
+def two_samples(card, tmp_path_factory):
+    """Two read sets sharing a 6 kbp genome, each with a 1 kbp private
+    region, built on the card, with their .rank arrays."""
+    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    d = tmp_path_factory.mktemp("setops")
+    rng = np.random.default_rng(31)
+    shared = "".join("ACGT"[c] for c in rng.integers(0, 4, 6000))
+    out = []
+    for tag, step in (("a", 7), ("b", 9)):
+        g = shared + "".join("ACGT"[c] for c in rng.integers(0, 4, 1000))
+        fa, fmd = str(d / f"{tag}.fa"), str(d / f"{tag}.fmd")
+        write_fasta(fa, [g[p:p + 100] for p in range(0, len(g) - 100, step)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+        rank = str(d / f"{tag}.rank")
+        seqsort(FMDIndex.restore(fmd, card), verbose=False).tofile(rank)
+        out.append((fa, fmd, rank))
+    return d, out
+
+
+def test_setops_card_vs_cpu(two_samples):
+    """Gap bits (two batch sizes), sub bits and contrast bits on the card
+    equal the CPU's, and each path launched K1."""
+    from fermi_tpu_torch.algos import contrast, merge, sub
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    _, ((_, f0, _), (_, f1, _)) = two_samples
+    res = {}
+    for dev in ("cuda", "cpu"):
+        e0, e1 = FMDIndex.restore(f0, dev), FMDIndex.restore(f1, dev)
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        r = [merge.compute_gap_bits(e0, e1, batch=b).cpu().numpy()
+             for b in (1 << 20, 100)]
+        ids = np.flatnonzero(np.random.default_rng(2).random(e0.n_seqs)
+                             < 0.4)
+        r.append(sub.mark_read_positions(e0, ids, e0.total).cpu().numpy())
+        r += list(contrast.fm6_contrast(e0, e1, 31, 3))
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] > before
+        res[dev] = r
+    assert np.array_equal(res["cuda"][0], res["cuda"][1])
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert np.array_equal(a, b)
+    assert res["cuda"][3].sum() > 0 and res["cuda"][4].sum() > 0
+
+
+def test_setops_cli_card_vs_cpu(two_samples, capfdbinary):
+    """merge, build -i, sub and contrast through the CLI on the card and
+    on the CPU: equal bytes."""
+    from fermi_tpu_torch.algos.sub import pack_bitfile
+    from fermi_tpu_torch.cli.main import main
+
+    d, ((fa0, f0, r0), (fa1, f1, r1)) = two_samples
+    bits = str(d / "sel.bits")
+    pack_bitfile(bits, np.repeat(np.random.default_rng(3).random(
+        np.fromfile(r0, np.uint64).size // 2) < 0.4, 2))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        dv = ["--device", dev]
+        m, a = str(d / f"m_{dev}.fmd"), str(d / f"a_{dev}.fmd")
+        subs = [str(d / f"{dev}{i}.sub") for i in (0, 1)]
+        assert main(["merge", *dv, "-fo", m, f0, f1, f0]) == 0
+        assert main(["build", *dv, "-fo", a, "-i", f0, fa1]) == 0
+        assert main(["sub", *dv, "-c", f0, bits]) == 0
+        out = capfdbinary.readouterr().out
+        assert main(["contrast", *dv, f0, r0, subs[0], f1, r1, subs[1]]) == 0
+        outs[dev] = [open(p, "rb").read() for p in (m, a, *subs)] + [out]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_builders_card_vs_cpu(card):
+    """wsort, the blocked builder (several blocks) and BCR on the card
+    equal the CPU's and the whole-text build."""
+    from fermi_tpu_torch.construct import bcr_device, blocked, suffix, wsort
+    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+
+    reads = random_reads(400, seed=14, with_genome=True, genome_len=5000)
+    seqs = [dna.encode(s) for s in reads]
+    text = suffix.build_text(seqs)
+    want = multistring_bwt_device(text, "cpu")
+    for dev in ("cuda", "cpu"):
+        assert np.array_equal(wsort.wsort_bwt(text, device=dev), want)
+        got = blocked.device_build_text(text, block_symbols=9000, device=dev)
+        assert blocked.STATS["blocks"] > 3 and np.array_equal(got, want)
+    one = [dna.encode(s) for s in reads]
+    assert np.array_equal(bcr_device.bcr_bwt_device(one, device="cuda"),
+                          bcr_device.bcr_bwt_device(one, device="cpu"))

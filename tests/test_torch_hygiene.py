@@ -48,8 +48,14 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch import api
+    from fermi_tpu_torch.algos.contrast import fm6_contrast
+    from fermi_tpu_torch.algos.merge import fm_merge
+    from fermi_tpu_torch.algos.sub import fm_sub
     from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.construct.bcr_device import bcr_bwt_device
+    from fermi_tpu_torch.construct.blocked import device_build_text
     from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+    from fermi_tpu_torch.construct.wsort import wsort_bwt
     from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.ops.sw_cuda import sw_score_batch
     from fermi_tpu_torch.rld import Runs
@@ -76,8 +82,26 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
              lambda: main(["seqsort", str(tmp_path / "x.fmd")]),
              lambda: main(["seqrank", str(tmp_path / "x.fmd")]),
              lambda: main(["unitig", str(tmp_path / "x.fmd")]),
-             lambda: compute_links_device(None, [np.ones(40, np.uint8)], 30)]
+             lambda: compute_links_device(None, [np.ones(40, np.uint8)], 30),
+             lambda: main(["merge", "-fo", str(tmp_path / "m.fmd"),
+                           str(tmp_path / "x.fmd"), str(tmp_path / "x.fmd")]),
+             lambda: main(["sub", str(tmp_path / "x.fmd"),
+                           str(tmp_path / "x.bits")]),
+             lambda: main(["contrast", *[str(tmp_path / f) for f in (
+                 "x.fmd", "x.rank", "x.sub", "x.fmd", "x.rank", "y.sub")]]),
+             lambda: main(["build", "-fo", str(tmp_path / "y.fmd"), "-i",
+                           str(tmp_path / "x.fmd"), str(fa)]),
+             lambda: fm_merge(FMDIndex.from_bwt(bwt), bwt,
+                              FMDIndex.from_bwt(bwt), bwt),
+             lambda: fm_sub(FMDIndex.from_bwt(bwt), bwt, np.ones(1, bool)),
+             lambda: fm6_contrast(FMDIndex.from_bwt(bwt),
+                                  FMDIndex.from_bwt(bwt), 31, 3),
+             lambda: wsort_bwt(bwt[::-1]),
+             lambda: device_build_text(bwt[::-1]),
+             lambda: bcr_bwt_device([bwt[:1]])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "y.fmd").exists()
+    assert not (tmp_path / "m.fmd").exists()
+    assert not (tmp_path / "y.sub").exists()
