@@ -15,14 +15,14 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
 - K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
   query in a 6,000 bp target, longer than one chunk of the kernel's rows);
 - `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
-  ids, and `exact` of 40,000 reads with 1% substitutions; the first 512
+  ids, and `exact` of 40,000 reads with 1% substitutions; the first 256
   queries are searched again on the CPU and must give the same SMEM tuples;
   then K1 on uniform keys at the shape of a loop step, K1 on the keys of
   every loop step of one 4,096-read `exact` batch (dead interval slots at
   fermi_tpu's spread keys and at key 0), and that batch profiled both ways
   (device busy and idle share, device time by kernel);
 - `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
-  of all of them, then of the first 65,536 with the host fix and with the
+  of all of them, then of the first 32,768 with the host fix and with the
   device fix, whose outputs must be byte-equal; the corrected reads are
   compared with the known genome;
 - `build` of the corrected reads and `seqsort`, whose .rank array must be a
@@ -50,8 +50,20 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   at least 95% of B's reads inside an insertion are selected, and at
   least 99% of the selected reads on either side touch a difference;
 - merge, sub, contrast and the three device builders on the reads of a
-  100 kbp window of both genomes (the blocked builder in two blocks), on
-  the card and on the CPU: equal.
+  50 kbp window of both genomes (the blocked builder in two blocks), on
+  the card and on the CPU: equal;
+- `run -t 8 -k 50`, the unpaired pipeline (run-fermi.pl) from the noisy
+  reads' FASTQ to p2.mag.gz: seconds by stage, and p2's unitigs, N50 and
+  share of bases in unitigs found exactly in the genome (at least 99%);
+  `run` of the 50 kbp window's reads on the card and on the CPU, every
+  artifact equal; `remap` of the run's p2 contigs against its ec.fmd;
+- `chkbwt -r` of the 281 Msym index (K1 at every position against a
+  running count), and of a copy with one run corrupted, which must fail;
+- `exact` of 200 queries of 2,000 bp (the native long-query engine) with
+  the index on the card and on the CPU: equal bytes;
+- 30x of error-free read pairs (insert 300 +- 20) from a 100 kbp window:
+  `build`, `seqsort`, `remap -r` with the window as the one contig (its
+  mean insert within 2% of the drawn one) and `remap -c 2 -D cap`.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -89,11 +101,13 @@ GENOME_LEN = 4_641_652          # E. coli K-12 MG1655
 READ_LEN = 100
 N_READS = 1_392_496             # 30x
 N_UNPACK = 1000
-N_CROSS = 512
+N_CROSS = 512                   # exact queries before the profiled batch
 N_SW_PAIRS = 65_536
-N_FIX_SUB = 65_536              # reads of the host-vs-device fix rerun
+N_CROSS_CPU = 256               # of them, searched again on the CPU
+N_FIX_SUB = 32_768              # reads of the host-vs-device fix rerun
 CROSS_WINDOW = 50_000           # genome bp whose reads the CPU re-checks
-SETOPS_WINDOW = 100_000         # the same for merge, sub, contrast, builders
+SETOPS_WINDOW = 50_000          # the same for merge, sub, contrast, builders
+PAIRS_WINDOW = 100_000          # genome bp of remap's read pairs
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_SMS = 132
 # Results per clock per SM for compute capability 9.0 (NVIDIA's CUDA C++
@@ -482,7 +496,7 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
                 launches=counts, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI)
 
 
-def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS):
+def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS_CPU):
     """The first n queries on `dev` and on the CPU (plain versions): equal
     SMEM tuples, and equal to the CLI's text for those queries."""
     from fermi_tpu_torch.core import dna, fastx
@@ -1066,7 +1080,7 @@ def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
     if outs["0"] != outs["1"]:
         raise AssertionError("device fix output differs from host fix output")
     log("correct_fix_equal", reads=n_sub, bytes=len(outs["0"]), equal=True)
-    return dict(ec_fq=ec_fq, win_fq=win_fq, k1_launches=k1)
+    return dict(fq=fq, ec_fq=ec_fq, win_fq=win_fq, k1_launches=k1)
 
 
 def seqsort_phase(workdir, ec_fq, dev):
@@ -1094,10 +1108,17 @@ def seqsort_phase(workdir, ec_fq, dev):
     return dict(fmd=fmd, k1_launches=k1)
 
 
+def decompressed(path):
+    import gzip
+
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
+
+
 def mag_seqs(path):
-    """The sequence line of every record of a MAG file."""
-    with open(path, "rb") as f:
-        lines = f.read().split(b"\n")
+    """The sequence line of every record of a MAG file (gzipped or not)."""
+    lines = decompressed(path).split(b"\n")
     return [lines[i + 1] for i in range(0, len(lines) - 1, 4)
             if lines[i].startswith(b"@")]
 
@@ -1713,6 +1734,199 @@ def cross_check_setops(workdir, res, con, dev, window=SETOPS_WINDOW):
         raise AssertionError(f"card and CPU differ: {bad}")
 
 
+# -- slice 6: the pipeline driver, chkbwt, long queries, remap ------------
+
+
+RUN_ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "p0.mag.gz", "p1.mag.gz",
+                 "p2.mag.gz")
+
+
+def run_phase(workdir, fq, win_fq, genome, dev, unitig_k=50):
+    """`run -t 8 -k 50` (the unpaired pipeline, raw reads to p2.mag.gz) on
+    the noisy reads' FASTQ: seconds by stage from the driver's log, K1
+    launches, p2's unitigs, N50 and the share of its bases in unitigs found
+    exactly in the genome (at least 99%).  Then `run` of the window's
+    reads on `dev` and on the CPU: every artifact equal, decompressed.
+    Returns the prefix of the full run's artifacts and its K1 launches."""
+    from fermi_tpu_torch.algos import correct as ec
+    from fermi_tpu_torch.search import unitig_links as ul
+
+    prefix = os.path.join(workdir, "pl")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t, _, err = run_cli(["run", "--device", str(dev), "-t", "8", "-k",
+                         str(unitig_k), "-p", prefix, fq])
+    k1 = launches()["rank6_fused"]
+    if dev.type == "cuda" and k1 < 1:
+        raise AssertionError("run did not launch K1")
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[pipeline::run\] stage (\w+): ([\d.]+)s", err)}
+    frags = [int(m.group(1)) for m in re.finditer(r"(\d+) fragments", err)]
+    kept = re.search(r"fltuniq: kept (\d+) reads", err)
+    st = dict(ul.STATS)
+    t0 = time.perf_counter()
+    p2 = mag_seqs(prefix + ".p2.mag.gz")
+    share = GenomeIndex(genome).exact_share(p2)
+    if share < 0.99:
+        raise AssertionError(f"run: p2 bases found in the genome: {share}")
+    log("run", seconds=t, stage_seconds=stages, fragments=frags,
+        fltuniq_kept=int(kept.group(1)), collect_s=ec.STATS["collect_s"],
+        fix_s=ec.STATS["fix_s"], unitig_retrieve_s=st["retrieve_s"],
+        unitig_walk_s=st["walk_s"], unitig_get_nei_s=st["getnei_s"],
+        unitig_stitch_s=st["stitch_s"], k1_launches=k1,
+        **{f"p2_{k}": v for k, v in assembly_stats(p2).items()},
+        p2_exact_share=share, check_seconds=time.perf_counter() - t0,
+        device_peak_gb=(torch.cuda.max_memory_allocated() / 2**30
+                        if dev.type == "cuda" else 0))
+
+    secs = {}
+    for d in (str(dev), "cpu"):
+        pre = os.path.join(workdir, f"wrun_{d}")
+        secs[d], _, _ = run_cli(["run", "--device", d, "-t", "8", "-k",
+                                 str(unitig_k), "-p", pre, win_fq])
+    for sfx in RUN_ARTIFACTS:
+        a = decompressed(os.path.join(workdir, f"wrun_{dev}.{sfx}"))
+        if a != decompressed(os.path.join(workdir, f"wrun_cpu.{sfx}")):
+            raise AssertionError(f"run: {sfx} differs card vs CPU")
+    log("run_window", window_bp=CROSS_WINDOW, artifacts=len(RUN_ARTIFACTS),
+        equal=True, device_seconds=secs[str(dev)], cpu_seconds=secs["cpu"])
+    return dict(prefix=prefix, k1_launches=k1)
+
+
+def corrupt_copy(fmd, path):
+    """A copy of fmd with one byte of its run data flipped, the first from
+    the middle on whose decoded runs differ from fmd's (the header's
+    marginal counts stay)."""
+    from fermi_tpu_torch import rld
+
+    raw = open(fmd, "rb").read()
+    want = rld.read_fmd(fmd)
+    for at in range(len(raw) // 2, len(raw)):
+        b = bytearray(raw)
+        b[at] ^= 0x10
+        with open(path, "wb") as f:
+            f.write(b)
+        try:
+            got = rld.read_fmd(path)
+        except IOError:
+            continue
+        if len(got.lengths) != len(want.lengths) or not (
+                np.array_equal(got.lengths, want.lengths)
+                and np.array_equal(got.symbols, want.symbols)):
+            return at
+    raise AssertionError("no byte of the runs changes the BWT")
+
+
+def chkbwt_phase(workdir, fmd, dev):
+    """`chkbwt -r` of the 281 Msym index on `dev` (K1 at every position
+    against a running count): it must pass; then of a copy with one run
+    corrupted, which must exit 1."""
+    from fermi_tpu_torch.cli.main import main
+
+    dv = ["--device", str(dev)]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t, _, err = run_cli(["chkbwt", *dv, "-r", fmd])
+    k1 = launches()["rank6_fused"]
+    peak = torch.cuda.max_memory_allocated()
+    if "rank check passed" not in err or (dev.type == "cuda" and k1 < 1):
+        raise AssertionError(f"chkbwt -r: {err[-300:]}")
+    bad = os.path.join(workdir, "bad.fmd")
+    at = corrupt_copy(fmd, bad)
+    e = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(e):
+        rc = main(["chkbwt", *dv, "-r", bad])
+    t_bad = time.perf_counter() - t0
+    msg = [ln for ln in e.getvalue().splitlines() if "[E::chkbwt]" in ln]
+    if rc != 1 or not msg:
+        raise AssertionError(f"chkbwt -r of a corrupted index exited {rc}")
+    os.remove(bad)
+    log("chkbwt", seconds=t, k1_launches=k1, device_peak_gb=peak / 2**30,
+        passed=True, corrupted_byte=at, corrupted_rc=rc,
+        corrupted_message=msg[0], corrupted_seconds=t_bad)
+    return k1
+
+
+def exact_long_phase(rng, workdir, genome, fmd, dev, n=200, length=2000):
+    """`exact` of n queries of `length` bp with 1% substitutions (the
+    native engine over the index's host arrays) with the index restored on
+    `dev` and on the CPU: byte-equal outputs."""
+    pos = rng.integers(0, len(genome) - length + 1, n)
+    q = genome[pos[:, None] + np.arange(length)]
+    err = rng.random(q.shape) < 0.01
+    q[err] = (q[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    q_fa = os.path.join(workdir, "long.fa")
+    write_fasta(q_fa, ASCII[q])
+    outs, secs = {}, {}
+    for d in (str(dev), "cpu"):
+        secs[d], outs[d], _ = run_cli(["exact", "--device", d, fmd, q_fa])
+    if outs[str(dev)] != outs["cpu"]:
+        raise AssertionError("exact of long queries differs card vs CPU")
+    text = outs["cpu"]
+    if text.count("SQ\t") != n:
+        raise AssertionError("exact of long queries: missing records")
+    log("exact_long", queries=n, query_bp=length, seconds=secs[str(dev)],
+        cpu_seconds=secs["cpu"], smems=text.count("\nEM\t"),
+        smems_per_query=text.count("\nEM\t") / n, equal=True)
+
+
+def remap_phase(workdir, prefix):
+    """`remap` of the run's cleaned contigs (p2.mag.gz) against its ec.fmd
+    (host code): seconds and the mean coverage over the contigs' bases."""
+    out = os.path.join(workdir, "p3.fq")
+    t, _, err = run_cli(["remap", prefix + ".ec.fmd", prefix + ".p2.mag.gz"],
+                        out)
+    lines = open(out, "rb").read().split(b"\n")
+    cov = np.frombuffer(b"".join(lines[3::4]), np.uint8).astype(np.int64) - 33
+    log("remap", contigs=len(lines) // 4, bases=int(cov.size), seconds=t,
+        mean_coverage=float(cov.mean()), insert_line=re.search(
+            r"\[M::remap\] (.*)", err).group(1))
+
+
+def remap_pairs_phase(rng, workdir, genome, dev, window=PAIRS_WINDOW,
+                      rl=READ_LEN, insert=300, sd=20):
+    """30x of error-free read pairs (mates adjacent, the second reverse
+    complemented, insert 300 +- 20) from a window of the genome: `build`,
+    `seqsort`, then `remap -r` with the window as the one contig, whose
+    insert line must be within 2% of the drawn mean insert; and `remap -c
+    2 -D cap`, which breaks the contig at unsupported stretches."""
+    g = genome[:window]
+    n = window * 30 // (2 * rl)
+    ins = np.clip(np.rint(rng.normal(insert, sd, n)).astype(np.int64),
+                  rl + 10, 1000)
+    pos = rng.integers(0, window - ins + 1)
+    left = g[pos[:, None] + np.arange(rl)]
+    right = 3 - g[(pos + ins - 1)[:, None] - np.arange(rl)]
+    reads = np.empty((2 * n, rl), np.int64)
+    reads[0::2], reads[1::2] = left, right
+    fa = os.path.join(workdir, "pairs.fa")
+    write_fasta(fa, ASCII[reads])
+    ctg = os.path.join(workdir, "window_ctg.fa")
+    with open(ctg, "wb") as f:
+        f.write(b">w\n" + ASCII[g].tobytes() + b"\n")
+    dv = ["--device", str(dev)]
+    fmd, rank = (os.path.join(workdir, f"pairs.{s}") for s in ("fmd", "rank"))
+    run_cli(["build", *dv, "-fo", fmd, fa])
+    run_cli(["seqsort", *dv, fmd], rank)
+    t, text, err = run_cli(["remap", "-r", rank, fmd, ctg])
+    m = re.search(r"avg = (\S+) std = (\S+) cap = (\S+)", err)
+    avg, std, cap = float(m.group(1)), float(m.group(2)), int(m.group(3))
+    drawn = float(ins.mean())
+    if abs(avg - drawn) > 0.02 * drawn:
+        raise AssertionError(f"remap: insert {avg} against drawn {drawn}")
+    t_c, broken, _ = run_cli(["remap", "-c", "2", "-D", str(cap), "-r", rank,
+                              fmd, ctg])
+    pieces = broken.count("\n+\n")
+    if pieces < 1 or "UR:Z:" in broken:
+        raise AssertionError("remap -c 2: no piece of the contig")
+    log("remap_pairs", window_bp=window, pairs=int(n), insert_drawn=drawn,
+        insert_sd_drawn=float(ins.std()), avg=avg, std=std, cap=cap,
+        within_2pct=True, seconds=t, unpaired_lists=text.count("UR:Z:"),
+        broken_seconds=t_c, broken_pieces=pieces)
+
+
 def ptxas_report(jobs):
     """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
     flags, output discarded); returns a function that waits and gives, per
@@ -1759,11 +1973,12 @@ def main():
     card_line = gpu_line()
     t0 = time.perf_counter()
     ptxas = ptxas_report([native.rank_job(), native.sw_job()])
-    native.build_all([native.codec_job(), native.ec_job(),
-                      native.unitig_job(), native.rank_job(), native.sw_job()])
-    native.get_lib()
-    native.get_ec_lib()
-    native.get_unitig_lib()
+    native.build_all([*native.host_jobs(), native.rank_job(),
+                      native.sw_job()])
+    for get in (native.get_lib, native.get_ec_lib, native.get_unitig_lib,
+                native.get_frags_lib, native.get_sequtil_lib,
+                native.get_smem_lib, native.get_remap_lib):
+        get()
     rank_cuda.get_lib()
     sw_cuda.get_lib()
     against = [Against(tree) for tree in args.against]
@@ -1799,6 +2014,16 @@ def main():
         profile_unitig(ss["fmd"], dev)
         win_fmd, win_rank = cross_check_ec(workdir, ec_res["win_fq"], dev)
         cross_check_unitig(workdir, win_fmd, win_rank, dev)
+        # slice 6: each phase draws from a stream of its own, so the draws
+        # of the phases around them stay as they were
+        run = run_phase(workdir, ec_res["fq"], ec_res["win_fq"],
+                        res["genome"], dev)
+        remap_phase(workdir, run["prefix"])
+        k1_chkbwt = chkbwt_phase(workdir, res["fmd"], dev)
+        exact_long_phase(np.random.default_rng(args.seed + 1), workdir,
+                         res["genome"], res["fmd"], dev)
+        remap_pairs_phase(np.random.default_rng(args.seed + 2), workdir,
+                          res["genome"], dev)
         setops = [builders_phase(workdir, res, dev),
                   merge_phase(workdir, res, dev),
                   sub_phase(rng, workdir, res, dev)]
@@ -1806,7 +2031,8 @@ def main():
         setops.append(con["k1_launches"])
         cross_check_setops(workdir, res, con, dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
-                   + ss["k1_launches"] + ut["k1_launches"] + sum(setops))
+                   + ss["k1_launches"] + ut["k1_launches"]
+                   + run["k1_launches"] + k1_chkbwt + sum(setops))
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

@@ -2,7 +2,8 @@
 for Hopper (H100).
 
 The package mirrors fermi_tpu's layout (core/, rld/, construct/, index/,
-ops/, search/, cli/, api.py) so every module has an obvious counterpart.
+ops/, search/, algos/, pipeline/, cli/, api.py) so every module has an
+obvious counterpart.
 It imports torch and never jax or fermi_tpu; the host code it needs
 (FASTA parsing, the RLD codec, the text layout) is its own copy.
 

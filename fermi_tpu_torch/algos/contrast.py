@@ -54,7 +54,7 @@ def collect_tips_batch(e: FMDIndex, kb, kf, sz, bits: torch.Tensor,
                        batch: int = BATCH) -> None:
     """Set in bits (bool [n_seqs] on e's device) the sentinel ranks of all
     reads reachable by backward extension from the given intervals
-    (cmp.c:22-43), whole frontier at once."""
+    (cmp.c:22-43) through any base, N included; whole frontier at once."""
     # +1 at each sentinel range's start, -1 at its end (a range of reads
     # KB[:, 0] + [0, SZ[:, 0]) lies within [0, n_seqs])
     diff = torch.zeros(bits.numel() + 1, dtype=torch.int32,
@@ -65,9 +65,13 @@ def collect_tips_batch(e: FMDIndex, kb, kf, sz, bits: torch.Tensor,
         b0, hit = KB[:, 0].long(), (SZ[:, 0] > 0).to(torch.int32)
         diff.index_add_(0, b0, hit)
         diff.index_add_(0, b0 + SZ[:, 0].long(), -hit)
-        kb = KB[:, 1:5].reshape(-1)
-        kf = KF[:, 1:5].reshape(-1)
-        csz = SZ[:, 1:5].reshape(-1)
+        # every non-sentinel child, N (5) included: a read with an N
+        # between the tip and its start reaches its sentinel only through
+        # it (fermi_tpu follows A-T only, and its selections of such reads
+        # lose their pair symmetry)
+        kb = KB[:, 1:6].reshape(-1)
+        kf = KF[:, 1:6].reshape(-1)
+        csz = SZ[:, 1:6].reshape(-1)
         keep = csz > 0
         kb, kf, sz = kb[keep], kf[keep], csz[keep]
     bits |= torch.cumsum(diff[:-1], 0) > 0

@@ -28,6 +28,7 @@ import time
 import numpy as np
 
 from fermi_tpu_torch import native
+from fermi_tpu_torch.search.smem import _native_index_arrays
 
 
 class Link:
@@ -50,7 +51,9 @@ class Link:
 def stitch_native(index, store, seqs, own_ks, min_match, sorted_arr=None):
     """C++ stitch (native/unitig.cpp funitig_stitch) over a LinkStore on
     the host arrays of the port's `index` (its blocks, occ widened to
-    int64, cnt[8]).  Redo rows and check_left run in the native engine.
+    int64, cnt[8]; copied once and cached on the index, which the native
+    SMEM engine shares).  Redo rows and check_left run in the native
+    engine.
     Returns (mag_text, n_recover)."""
     lib = native.get_unitig_lib()
     n = int(index.n_seqs)
@@ -62,9 +65,7 @@ def stitch_native(index, store, seqs, own_ks, min_match, sorted_arr=None):
     srt = None
     if sorted_arr is not None:
         srt = np.ascontiguousarray(sorted_arr, dtype=np.uint64)
-    blocks = np.ascontiguousarray(index.bwt_blocks.cpu().numpy(), np.uint8)
-    occ = np.ascontiguousarray(index.occ.cpu().numpy(), np.int64)
-    cnt8 = np.ascontiguousarray(index.cnt.cpu().numpy(), np.int64)
+    blocks, occ, cnt8, _ = _native_index_arrays(index)
     # every array below stays referenced until the call returns
     la = [np.ascontiguousarray(a) for a in (
         store.valid.view(np.uint8), store.ret, store.intv0,

@@ -1,11 +1,11 @@
 """fermi-compatible command line of the port: build (and build -i),
-unpack, exact, correct, seqsort/seqrank, unitig, clean, merge, sub,
-contrast, bitand, recode.
+unpack, exact, chkbwt, correct, seqsort/seqrank, unitig, clean, merge, sub,
+contrast, bitand, recode, remap, fltuniq, and run (the unpaired pipeline).
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
 mirrors reference main.c.  Each subcommand that queries an index runs on
-CUDA unless `--device cpu` (or another device) is given; `clean`, `bitand`
-and `recode` are host code, as in fermi_tpu.
+CUDA unless `--device cpu` (or another device) is given; `clean`, `bitand`,
+`recode`, `remap` and `fltuniq` are host code, as in fermi_tpu.
 """
 
 import argparse
@@ -54,7 +54,7 @@ def cmd_build(args):
     import os
     from fermi_tpu_torch import resolve_device, rld
     from fermi_tpu_torch.core import dna, fastx
-    from fermi_tpu_torch.construct import suffix
+    from fermi_tpu_torch.construct import blocked, suffix
 
     device = resolve_device(args.device)
     if args.out != "-" and not args.force and os.path.exists(args.out):
@@ -67,7 +67,7 @@ def cmd_build(args):
             s = s[: args.max_len]
         seqs.append(s)
     text = suffix.build_text(seqs, trim_palindrome=not args.no_trim_pal)
-    bwt = _device_bwt(text, device)
+    bwt = blocked.device_bwt(text, device)
     if args.append_to:
         from fermi_tpu_torch.algos import merge as mg
         from fermi_tpu_torch.index.fmd import FMDIndex
@@ -78,16 +78,6 @@ def cmd_build(args):
         bwt = bwt.cpu().numpy()
     rld.write_fmd(rld.Runs.from_bwt(bwt), args.out, sbits=args.sbits)
     return 0
-
-
-def _device_bwt(text, device):
-    """The BWT of a text on `device`: prefix doubling, or the blocked
-    builder for texts too long for its packed sort key."""
-    from fermi_tpu_torch.construct import blocked, suffix_device
-
-    if text.size >= suffix_device.MAX_TEXT:
-        return blocked.device_build_text(text, device=device)
-    return suffix_device.multistring_bwt_device(text, device)
 
 
 def _add_unpack(sub):
@@ -153,6 +143,67 @@ def cmd_exact(args):
             for m in mems:
                 out.write("EM\t" + sm.format_smem(idx, m) + "\n")
             out.write("//\n")
+    return 0
+
+
+CHKBWT_CHUNK = 1 << 22     # positions a rank-check step compares
+
+
+def _add_chkbwt(sub):
+    p = sub.add_parser("chkbwt", help="validate the FMD-index")
+    p.add_argument("-M", dest="mmap", action="store_true")
+    p.add_argument("-r", dest="check_rank", action="store_true",
+                   help="check rank() at every position against a running "
+                        "count (kernel K1 on the card)")
+    p.add_argument("-p", dest="plain", action="store_true",
+                   help="print the BWT")
+    _device_arg(p)
+    p.add_argument("fmd")
+    p.set_defaults(func=cmd_chkbwt)
+
+
+def cmd_chkbwt(args):
+    """The marginal counts; with -r, rank6 at every position against a
+    running count of the BWT, a chunk at a time on the index's device (the
+    memory beyond the index is one chunk's); with -p, the BWT as text."""
+    import torch
+
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    if args.mmap:
+        return _not_ported("chkbwt", "-M (mmap index)", "item 3c")
+    runs = rld.read_fmd(args.fmd)
+    mc = ", ".join(str(int(x)) for x in runs.mcnt)
+    sys.stderr.write(f"[M::chkbwt] marginal counts: ({mc})\n")
+    idx = FMDIndex.from_runs(runs, device)
+    if args.check_rank:
+        bwt = idx.bwt()
+        syms = torch.arange(6, dtype=torch.uint8, device=device)[:, None]
+        carry = torch.zeros((6, 1), dtype=torch.int64, device=device)
+        for lo in range(0, idx.total, CHKBWT_CHUNK):
+            hi = min(lo + CHKBWT_CHUNK, idx.total)
+            # counts of each symbol in BWT[0..k] for k in [lo, hi), as
+            # [6, hi - lo]: the scan runs along the inner dimension
+            expect = carry + torch.cumsum(bwt[lo:hi] == syms, 1)
+            ks = torch.arange(lo + 1, hi + 1, device=device)
+            bad = (idx.rank6(ks).T != expect).T.nonzero()
+            if bad.numel():
+                pos, c = bad[0].tolist()
+                sys.stderr.write(
+                    f"[E::chkbwt] rank({c},{lo + pos}) mismatch\n")
+                return 1
+            carry = expect[:, -1:]
+        want = np.asarray(runs.mcnt[1:7], dtype=np.int64)
+        if not np.array_equal(carry[:, 0].cpu().numpy(), want):
+            sys.stderr.write("[E::chkbwt] marginal count mismatch\n")
+            return 1
+        sys.stderr.write("[M::chkbwt] rank check passed\n")
+    if args.plain:
+        sys.stdout.write(dna.decode(idx.bwt().cpu().numpy()))
+        sys.stdout.write("\n")
     return 0
 
 
@@ -436,15 +487,94 @@ def cmd_recode(args):
     return 0
 
 
+def _add_remap(sub):
+    p = sub.add_parser(
+        "remap", help="compute coverage and PE coverage (host code: the "
+                      "index is restored on the CPU, the contigs' SMEMs "
+                      "come from the native engine)")
+    p.add_argument("-M", dest="mmap", action="store_true")
+    p.add_argument("-l", dest="skip", type=int, default=50)
+    p.add_argument("-c", dest="min_pcv", type=int, default=0)
+    p.add_argument("-D", dest="max_dist", type=int, default=1000)
+    p.add_argument("-r", dest="rank_file", default=None)
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="accepted for compatibility; the native engine "
+                        "uses every core")
+    p.add_argument("fmd")
+    p.add_argument("contigs")
+    p.set_defaults(func=cmd_remap)
+
+
+def cmd_remap(args):
+    """Contigs annotated with coverage (and, with -r, read-pair links) on
+    stdout, the insert-size line on stderr."""
+    from fermi_tpu_torch.algos.remap import remap
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    if args.mmap:
+        return _not_ported("remap", "-M (mmap index)", "item 3c")
+    idx = FMDIndex.restore(args.fmd, "cpu")
+    sorted_arr = None
+    if args.rank_file:
+        sorted_arr = np.fromfile(args.rank_file, np.uint64)
+    remap(idx, args.contigs, sys.stdout, sorted_arr, args.skip, args.min_pcv,
+          args.max_dist)
+    return 0
+
+
+def _add_fltuniq(sub):
+    p = sub.add_parser("fltuniq", help="filter reads containing unique mers")
+    p.add_argument("-k", dest="k", type=int, default=0)
+    p.add_argument("fastx")
+    p.set_defaults(func=cmd_fltuniq)
+
+
+def cmd_fltuniq(args):
+    """The reads without a unique k-mer on stdout (host code)."""
+    from fermi_tpu_torch.cli import sequtils as su
+
+    su.fltuniq(args.fastx, sys.stdout, k=args.k)
+    return 0
+
+
+def _add_run(sub):
+    p = sub.add_parser(
+        "run", help="full assembly pipeline (run-fermi.pl), unpaired: "
+                    "raw.fmd, ec.fq.gz, ec.fmd, p0-p2.mag.gz; unitig gives "
+                    "`unitig -t 1`'s bytes whatever -t is")
+    p.add_argument("-P", dest="paired", action="store_true",
+                   help="input is collated/interleaved paired FASTQ")
+    p.add_argument("-C", dest="skip_ec", action="store_true")
+    p.add_argument("-t", dest="n_threads", type=int, default=2)
+    p.add_argument("-p", dest="prefix", default="fmdef")
+    p.add_argument("-l", dest="trim_l", type=int, default=0)
+    p.add_argument("-k", dest="unitig_k", type=int, default=50)
+    _device_arg(p)
+    p.add_argument("fastx", nargs="+")
+    p.set_defaults(func=cmd_run)
+
+
+def cmd_run(args):
+    from fermi_tpu_torch.pipeline.driver import Pipeline
+
+    if args.paired:
+        return _not_ported("run", "-P (the paired chain)", "item 11b")
+    Pipeline(args.prefix, n_threads=args.n_threads, unitig_k=args.unitig_k,
+             trim_l=args.trim_l, skip_ec=args.skip_ec,
+             device=args.device).run(args.fastx)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fermi-tpu-torch",
         description="FMD-index build, search, error correction and "
                     "assembly on CUDA (fermi-compatible CLI)")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for add in (_add_build, _add_unpack, _add_exact, _add_correct,
-                _add_seqsort, _add_unitig, _add_clean, _add_merge, _add_sub,
-                _add_contrast, _add_bitand, _add_recode):
+    for add in (_add_build, _add_unpack, _add_exact, _add_chkbwt,
+                _add_correct, _add_seqsort, _add_unitig, _add_clean,
+                _add_merge, _add_sub, _add_contrast, _add_bitand, _add_recode,
+                _add_remap, _add_fltuniq, _add_run):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

@@ -106,3 +106,13 @@ def _sync_clock(dev) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return time.perf_counter()
+
+
+def device_bwt(text: np.ndarray, device=None) -> np.ndarray:
+    """The BWT of a text on `device`: prefix doubling, or this blocked
+    builder for texts too long for its packed sort key."""
+    from fermi_tpu_torch.construct import suffix_device
+
+    if text.size >= suffix_device.MAX_TEXT:
+        return device_build_text(text, device=device)
+    return suffix_device.multistring_bwt_device(text, device)

@@ -52,6 +52,25 @@ def build_text(seqs: list[np.ndarray], both_strands: bool = True,
     return out
 
 
+def build_text_packed(F: np.ndarray, offsets: np.ndarray,
+                      both_strands: bool = True,
+                      trim_palindrome: bool = True) -> np.ndarray:
+    """build_text over reads already packed as (concatenated nt6, offsets),
+    in one native pass (native/frags.cpp fbuild_text)."""
+    from fermi_tpu_torch import native
+
+    n_reads = len(offsets) - 1
+    if n_reads <= 0:
+        return np.zeros(0, np.uint8)
+    F = np.ascontiguousarray(F, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    out = np.empty(int(2 * F.size + 2 * n_reads), np.uint8)
+    n = native.get_frags_lib().fbuild_text(
+        F.ctypes.data, offsets.ctypes.data, n_reads, int(both_strands),
+        int(trim_palindrome), out.ctypes.data)
+    return out[:n]
+
+
 def bwt_from_sa(text: np.ndarray, sa: np.ndarray) -> np.ndarray:
     """BWT[i] = text[SA[i]-1], with 0 where SA[i]==0 (reference ksa_bwt rule)."""
     t = np.asarray(text, dtype=np.uint8)

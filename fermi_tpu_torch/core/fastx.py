@@ -119,3 +119,24 @@ def read_fastx(path: str) -> Iterator[SeqRecord]:
     finally:
         if fp is not sys.stdin:
             fp.close()
+
+
+def fastq_seq_spans(data: bytes):
+    """(arr, starts, lens) of the sequence lines of a plain 4-line FASTQ
+    byte buffer, or None if the buffer isn't that shape.  Span arithmetic
+    only, no per-record objects."""
+    import numpy as np
+
+    if not data:
+        return None
+    if data[-1:] != b"\n":
+        data += b"\n"
+    arr = np.frombuffer(data, np.uint8)
+    nl = np.flatnonzero(arr == 10)
+    if nl.size % 4:
+        return None
+    ls = np.concatenate([[0], nl[:-1] + 1])
+    if not (arr[ls[0::4]] == ord("@")).all() or \
+       not (arr[ls[2::4]] == ord("+")).all():
+        return None
+    return arr, ls[1::4], nl[1::4] - ls[1::4]

@@ -146,9 +146,10 @@ class FMDIndex:
     def from_runs(runs, device=None) -> "FMDIndex":
         """Device index straight from RLE runs: the runs go to the device
         and are expanded there (repeat_interleave), then blocked, counted
-        and packed with torch ops."""
+        and packed with torch ops.  Its length is the runs' (a damaged
+        file's header may claim another, which chkbwt reports)."""
         dev = resolve_device(device)
-        n = int(runs.mcnt[0])
+        n = int(np.sum(runs.lengths))
         sym = torch.from_numpy(np.ascontiguousarray(runs.symbols,
                                                     dtype=np.uint8)).to(dev)
         lens = torch.from_numpy(np.ascontiguousarray(runs.lengths,

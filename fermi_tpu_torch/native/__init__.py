@@ -4,8 +4,11 @@ Shared libraries, each built from one source file of this package into
 fermi_tpu_torch/build/ at first use (the directory is not committed):
 
   * the RLD\\2 codec (native/rld_codec.cpp), the error-correction fix
-    engine (native/ec.cpp) and the unitig stitch (native/unitig.cpp with
-    native/fmindex.h), plain g++, no torch headers;
+    engine (native/ec.cpp), the unitig stitch (native/unitig.cpp with
+    native/fmindex.h), the read encoders (native/frags.cpp), the fltuniq
+    filter (native/sequtil.cpp), the long-query SMEM engine
+    (native/smem.cpp with native/fmindex.h) and remap's paircov
+    (native/remap.cpp), plain g++, no torch headers;
   * the CUDA kernels (csrc/rank.cu, csrc/sw.cu), nvcc for sm_90a, plain C
     interface (ops/rank_cuda.py and ops/sw_cuda.py launch them).
 
@@ -110,6 +113,28 @@ def unitig_job() -> Job:
     return _gxx_job("funitig", "unitig.cpp", ("fmindex.h",))
 
 
+def frags_job() -> Job:
+    return _gxx_job("ffrags", "frags.cpp")
+
+
+def sequtil_job() -> Job:
+    return _gxx_job("fsequtil", "sequtil.cpp")
+
+
+def smem_job() -> Job:
+    return _gxx_job("fsmem", "smem.cpp", ("fmindex.h",))
+
+
+def remap_job() -> Job:
+    return _gxx_job("fremap", "remap.cpp")
+
+
+def host_jobs() -> list:
+    """Every g++ library of the port."""
+    return [codec_job(), ec_job(), unitig_job(), frags_job(), sequtil_job(),
+            smem_job(), remap_job()]
+
+
 def rank_job() -> Job:
     return _nvcc_job("rank_k1", "rank.cu")
 
@@ -154,6 +179,37 @@ _SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P, _P, _P, _P, _I, _P, _I, _P, _P]),
         "funitig_free": (None, [_P]),
+    },
+    "ffrags": {
+        # fbuild_text(seqs, offsets, n_reads, both_strands, trim_pal, out)
+        "fbuild_text": (_I64, [_P, _P, _I64, _I, _I, _P]),
+        # fencode_frags(data, starts, lens, n_reads, n_threads, F**, offs**)
+        "fencode_frags": (_I64, [_P, _P, _P, _I64, _I, _P, _P]),
+        # ffastq_frags(path, n_threads, F**, offs**, nfrag*) -> len(F)
+        "ffastq_frags": (_I64, [ctypes.c_char_p, _I, _P, _P, _P]),
+        "ffrags_free": (None, [_P]),
+    },
+    "fsequtil": {
+        # fspans_extract(src, starts, lens, n, dst, n_threads)
+        "fspans_extract": (None, [_P, _P, _P, _I64, _P, _I]),
+        # fflt_keep(seqs, offsets, n_reads, k, keep_out, n_threads)
+        "fflt_keep": (_I, [_P, _P, _I64, _I, _P, _I]),
+    },
+    "fsmem": {
+        # fsmem_all(blocks, occ, n_rows, cnt, n_seqs, queries, offsets,
+        #           n_queries, self_match, counts*, total*) -> int64 [total, 5]
+        "fsmem_all": (_P, [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I, _P,
+                           _P]),
+        "fsmem_free": (None, [_P]),
+    },
+    "fremap": {
+        "fpaircov_create": (_P, [_I64, _I64]),
+        # fpaircov_batch(hd, mems, counts, lens, n_contigs, sorted, n_seqs,
+        #                cov, pcv, n_supp, unp_k, unp_v, unp_counts)
+        "fpaircov_batch": (_I64, [_P, _P, _P, _P, _I64, _P, _I64, _P, _P,
+                                  _P, _P, _P, _P]),
+        "fpaircov_stats": (None, [_P, _P]),
+        "fpaircov_destroy": (None, [_P]),
     },
     # the kernels' entries return the cudaError_t of their launch
     "rank_k1": {
@@ -207,3 +263,23 @@ def get_ec_lib() -> ctypes.CDLL:
 def get_unitig_lib() -> ctypes.CDLL:
     """The unitig stitch (native/unitig.cpp), built on first use."""
     return load(unitig_job)
+
+
+def get_frags_lib() -> ctypes.CDLL:
+    """The read encoders (native/frags.cpp), built on first use."""
+    return load(frags_job)
+
+
+def get_sequtil_lib() -> ctypes.CDLL:
+    """The fltuniq filter and span copy (native/sequtil.cpp)."""
+    return load(sequtil_job)
+
+
+def get_smem_lib() -> ctypes.CDLL:
+    """The long-query SMEM engine (native/smem.cpp), built on first use."""
+    return load(smem_job)
+
+
+def get_remap_lib() -> ctypes.CDLL:
+    """remap's paircov engine (native/remap.cpp), built on first use."""
+    return load(remap_job)

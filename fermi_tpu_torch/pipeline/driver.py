@@ -1,0 +1,380 @@
+"""End-to-end assembly pipeline (run-fermi.pl), unpaired chain.
+
+The port of fermi_tpu/pipeline/driver.py.  The same artifact DAG and stage
+semantics as the reference pipeline (run-fermi.pl:53-104): stages run in
+process, each writes a durable artifact and is skipped when that artifact
+exists, so an interrupted run resumes.  Insert-size statistics flow through
+a JSON sidecar (insert.json) instead of being grepped out of stderr logs.
+
+On the Pipeline's device (CUDA unless another device is named): every
+index build (prefix doubling, or the blocked builder for texts of
+suffix_device.MAX_TEXT symbols and more), the error-correction collect,
+the .rank walk and unitig's link records.  On the host: the read encoders
+and fltuniq (native), the correction fix and the unitig stitch (native),
+clean and remap.  Unitig's output is `unitig -t 1`'s bytes whatever the
+thread count.  The paired chain's scaffolding stages (scaf, the final
+remap; ROADMAP queue 1 item 11b) are not ported: `run` of a paired
+Pipeline raises before its first stage.
+"""
+
+import ctypes
+import gzip
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from fermi_tpu_torch import native, resolve_device
+
+
+def log(stage, msg):
+    sys.stderr.write(f"[pipeline::{stage}] {msg}\n")
+    sys.stderr.flush()
+
+
+class _GzPipeWriter:
+    """Text sink compressing through an external `gzip -1` process, so the
+    deflate runs on its own core beside the producing stage (the reference
+    chain's `fermi clean ... | gzip -1`).  Context-managed; raises if gzip
+    fails."""
+
+    def __init__(self, path):
+        self._f = open(path, "wb")
+        self._proc = subprocess.Popen(
+            ["gzip", "-1", "-c"], stdin=subprocess.PIPE, stdout=self._f,
+            bufsize=1 << 20)
+        self._w = io.TextIOWrapper(self._proc.stdin, write_through=False)
+
+    def write(self, s):
+        self._w.write(s)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self._w.close()
+        else:
+            # the stage is already unwinding; a dead gzip (disk full,
+            # killed) would raise BrokenPipeError here and mask the
+            # original exception
+            try:
+                self._w.close()
+            except (BrokenPipeError, ValueError, OSError):
+                pass
+        rc = self._proc.wait()
+        self._f.close()
+        if exc_type is None and rc != 0:
+            raise OSError(f"gzip exited with {rc}")
+        return False
+
+
+def _gz_text_writer(path):
+    """`gzip -1` subprocess writer when the binary exists, else in-process."""
+    if shutil.which("gzip"):
+        return _GzPipeWriter(path)
+    return io.TextIOWrapper(gzip.open(path, "wb", 1))
+
+
+class Pipeline:
+    def __init__(self, prefix, n_threads=8, unitig_k=50, paired=False,
+                 trim_l=0, skip_ec=False, device=None):
+        self.prefix = prefix
+        self.t = n_threads
+        self.k = unitig_k
+        self.paired = paired
+        self.trim_l = trim_l
+        self.skip_ec = skip_ec
+        self.device = resolve_device(device)
+        self.min_clean_o = int(unitig_k * 1.2 + 0.499)
+        self._cache = {}  # in-process index reuse across stages
+
+    def _p(self, suffix):
+        return f"{self.prefix}.{suffix}"
+
+    def _runs(self, path):
+        key = ("runs", path)
+        if key not in self._cache:
+            from fermi_tpu_torch import rld
+            self._cache[key] = rld.read_fmd(path)
+        return self._cache[key]
+
+    def _fmd(self, path):
+        key = ("fmd", path)
+        if key not in self._cache:
+            from fermi_tpu_torch.index.fmd import FMDIndex
+            self._cache[key] = FMDIndex.from_runs(self._runs(path),
+                                                  self.device)
+        return self._cache[key]
+
+    def _drop(self, path):
+        """Free an index no later stage reads (device memory)."""
+        self._cache.pop(("fmd", path), None)
+
+    # -- index builds ------------------------------------------------------
+
+    @staticmethod
+    def _frags_from_fastq(paths):
+        """(F, offsets) forward-only nt6 fragments (maximal ACGT runs) of
+        plain 4-line FASTQ files, plain or gzipped, by the native encoders;
+        None when a file is not that shape."""
+        from fermi_tpu_torch.core import fastx
+        Fs, offs_list = [], []
+        for path in paths:
+            if not str(path).endswith(".gz"):
+                fo = Pipeline._frags_from_plain_fastq(path)
+                if fo is not None:
+                    Fs.append(fo[0])
+                    offs_list.append(fo[1])
+                    continue
+            opener = gzip.open if str(path).endswith(".gz") else open
+            with opener(path, "rb") as f:
+                data = f.read()
+            sp = fastx.fastq_seq_spans(data)
+            if sp is None:
+                return None
+            F, offs = Pipeline._encode_spans(*sp)
+            Fs.append(F)
+            offs_list.append(offs)
+        if len(Fs) == 1:
+            return Fs[0], offs_list[0]
+        base = 0
+        adj = []
+        for F, offs in zip(Fs, offs_list):
+            adj.append(offs[:-1] + base if adj else offs[:-1])
+            base += len(F)
+        adj.append(np.array([base], np.int64))
+        return np.concatenate(Fs), np.concatenate(adj)
+
+    @staticmethod
+    def _take(lib, pF, pO, n_frag):
+        """Copies of the encoders' malloc'd fragment buffers, then freed."""
+        try:
+            offs = np.ctypeslib.as_array(pO, shape=(n_frag + 1,)).copy()
+            F = np.ctypeslib.as_array(pF, shape=(int(offs[-1]) + 1,))[
+                : int(offs[-1])].copy()
+        finally:
+            lib.ffrags_free(ctypes.cast(pF, ctypes.c_void_p))
+            lib.ffrags_free(ctypes.cast(pO, ctypes.c_void_p))
+        return F, offs
+
+    @staticmethod
+    def _frags_from_plain_fastq(path):
+        """(F, offsets) of a plain file in one native pass (ffastq_frags:
+        mmap, threaded newline scan, encode, ACGT-run split); None when the
+        file is empty or not 4-line FASTQ."""
+        lib = native.get_frags_lib()
+        pF = ctypes.POINTER(ctypes.c_uint8)()
+        pO = ctypes.POINTER(ctypes.c_int64)()
+        nfrag = ctypes.c_int64()
+        n = lib.ffastq_frags(str(path).encode(), min(os.cpu_count() or 1, 8),
+                             ctypes.byref(pF), ctypes.byref(pO),
+                             ctypes.byref(nfrag))
+        if n == -4:
+            raise MemoryError(f"ffastq_frags({path}): out of memory")
+        if n < 0:
+            return None
+        return Pipeline._take(lib, pF, pO, int(nfrag.value))
+
+    @staticmethod
+    def _encode_spans(arr, starts, lens):
+        """(F, offsets) of the reads at byte spans of a buffer (native
+        fencode_frags: table encode and ACGT-run split, threaded)."""
+        lib = native.get_frags_lib()
+        starts = np.ascontiguousarray(starts, np.int64)
+        lens = np.ascontiguousarray(lens, np.int64)
+        pF = ctypes.POINTER(ctypes.c_uint8)()
+        pO = ctypes.POINTER(ctypes.c_int64)()
+        nfrag = lib.fencode_frags(arr.ctypes.data, starts.ctypes.data,
+                                  lens.ctypes.data, len(starts), 4,
+                                  ctypes.byref(pF), ctypes.byref(pO))
+        if nfrag < 0:
+            raise MemoryError("fencode_frags: out of memory")
+        return Pipeline._take(lib, pF, pO, nfrag)
+
+    def _build_from_frags(self, F, offs, out_fmd, t0):
+        """The index of forward-only nt6 fragments: the text (each
+        fragment and its reverse complement), its BWT on the device, the
+        .fmd dump."""
+        from fermi_tpu_torch import rld
+        from fermi_tpu_torch.construct import blocked, suffix
+
+        nfrag = len(offs) - 1
+        t_text = time.time()
+        text = suffix.build_text_packed(F, offs)
+        log("build", f"{nfrag} fragments, {text.size / 1e6:.1f}M "
+            f"symbols on {self.device}")
+        t_sort = time.time()
+        runs = rld.Runs.from_bwt(blocked.device_bwt(text, self.device))
+        t_bwt = time.time()
+        rld.write_fmd(runs, out_fmd)
+        self._cache[("runs", out_fmd)] = runs
+        log("build", f"wrote {out_fmd} in {time.time() - t0:.1f}s "
+            f"(frags {t_text - t0:.1f}, text {t_sort - t_text:.1f}, "
+            f"bwt {t_bwt - t_sort:.1f}, dump {time.time() - t_bwt:.1f})")
+
+    def build_index(self, reads_iter, out_fmd, paths=None):
+        """raw/ec FMD-index (the reference's `ropebwt -a bcr -N` stage):
+        plain FASTQ through the native encoders, any other input record by
+        record; reads are split at every non-ACGT base either way."""
+        from fermi_tpu_torch.core import dna
+
+        t0 = time.time()
+        if paths is not None:
+            fo = self._frags_from_fastq(paths)
+            if fo is not None:
+                self._build_from_frags(*fo, out_fmd, t0)
+                return
+        # join reads with N: encode maps it to 5, and fragments are maximal
+        # runs of non-5 symbols, so one vectorized pass splits them
+        enc = dna.encode("N".join(reads_iter))
+        ok = enc != 5
+        edge = np.diff(ok.view(np.int8), prepend=np.int8(0),
+                       append=np.int8(0))
+        lens = np.flatnonzero(edge == -1) - np.flatnonzero(edge == 1)
+        offsets = np.concatenate([[0], np.cumsum(lens)])
+        self._build_from_frags(enc[ok], offsets, out_fmd, t0)
+
+    # -- stages ------------------------------------------------------------
+
+    def stage_raw_fmd(self, fastx_paths):
+        out = self._p("ec.fmd" if self.skip_ec else "raw.fmd")
+        if os.path.exists(out):
+            return
+        from fermi_tpu_torch.core import fastx
+
+        def reads():
+            for path in fastx_paths:
+                for rec in fastx.read_fastx(path):
+                    yield rec.seq
+
+        self.build_index(reads(), out, paths=list(fastx_paths))
+
+    def stage_correct(self, fastx_paths):
+        out = self._p("ec.fq.gz")
+        if self.skip_ec or os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos import correct as ec
+
+        raw = self._p("raw.fmd")
+        with _gz_text_writer(out + ".tmp") as fp:
+            # the reference corrects the concatenated input stream
+            ec.ec_correct(self._fmd(raw), list(fastx_paths), fp,
+                          n_threads=self.t, is_paired=self.paired,
+                          trim_l=self.trim_l)
+        self._drop(raw)
+        os.rename(out + ".tmp", out)
+
+    def stage_ec_fmd(self):
+        out = self._p("ec.fmd")
+        if os.path.exists(out):
+            return
+        from fermi_tpu_torch.cli import sequtils as su
+        from fermi_tpu_torch.core import fastx
+
+        src = self._p("ec.fq.gz")
+        t0 = time.time()
+        # fltuniq keep flags -> kept reads' spans -> fragments -> build,
+        # without writing the filtered FASTQ (the same fragments as the
+        # flt.fq round trip: the same spans, the same encoder)
+        spans = su.fltuniq_kept_seq_spans(src)
+        if spans is not None:
+            fo = self._encode_spans(*spans)
+            log("ec_fmd", f"fltuniq: kept {len(spans[1])} reads "
+                f"in {time.time() - t0:.1f}s")
+            self._build_from_frags(*fo, out, t0)
+            return
+        flt = self._p("flt.fq")
+        with open(flt, "w") as fp:
+            su.fltuniq(src, fp)
+
+        def reads():
+            for rec in fastx.read_fastx(flt):
+                yield rec.seq
+
+        self.build_index(reads(), out, paths=[flt])
+        os.remove(flt)
+
+    def stage_rank(self):
+        out = self._p("ec.rank")
+        if not self.paired or os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos.seqsort import seqsort
+
+        seqsort(self._fmd(self._p("ec.fmd"))).tofile(out)
+
+    def stage_unitig(self):
+        out = self._p("p0.mag.gz")
+        if os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos.unitig_bulk import fm6_unitig_device
+
+        sorted_arr = None
+        if self.paired:
+            sorted_arr = np.fromfile(self._p("ec.rank"), np.uint64)
+        with _gz_text_writer(out + ".tmp") as fp:
+            fm6_unitig_device(self._fmd(self._p("ec.fmd")), self.k, fp,
+                              sorted_arr=sorted_arr)
+        os.rename(out + ".tmp", out)
+
+    def _clean(self, src, dst, **over):
+        if os.path.exists(self._p(dst)):
+            return
+        from fermi_tpu_torch.algos import mag as M
+
+        opt = dict(M.DEFAULT_OPT)
+        opt.update(over)
+        g = M.mag_read(self._p(src), opt)
+        M.g_clean(g, opt)
+        with _gz_text_writer(self._p(dst) + ".tmp") as fp:
+            M.mag_print(g, fp)
+        os.rename(self._p(dst) + ".tmp", self._p(dst))
+
+    def stage_clean(self):
+        self._clean("p0.mag.gz", "p1.mag.gz")
+        self._clean("p1.mag.gz", "p2.mag.gz", flag_clean=True,
+                    flag_aggressive=True, flag_read_ori=True,
+                    flag_no_amend=True, min_ovlp=self.min_clean_o)
+
+    def stage_remap(self):
+        out = self._p("p3.mag.gz")
+        if not self.paired or os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos.remap import remap
+
+        # remap's contig queries run in the native SMEM engine over the
+        # index's host arrays (one copy from the device, cached)
+        sorted_arr = np.fromfile(self._p("ec.rank"), np.uint64)
+        with _gz_text_writer(out + ".tmp") as fp:
+            avg, std, cap = remap(self._fmd(self._p("ec.fmd")),
+                                  self._p("p2.mag.gz"), fp, sorted_arr)
+        os.rename(out + ".tmp", out)
+        with open(self._p("insert.json"), "w") as fp:
+            json.dump({"avg": avg, "std": std, "cap": cap}, fp)
+
+    def run(self, fastx_paths):
+        """The unpaired chain, raw reads to p2.mag.gz.  Seconds of each
+        stage go to the log (`[pipeline::run] stage NAME: S s`)."""
+        if self.paired:
+            raise NotImplementedError(
+                "run of paired reads (scaf and the final remap) is not "
+                "ported to fermi_tpu_torch yet (ROADMAP queue 1, item 11b)")
+        t0 = time.time()
+        stages = [("raw_fmd", lambda: self.stage_raw_fmd(fastx_paths)),
+                  ("correct", lambda: self.stage_correct(fastx_paths))]
+        if not self.skip_ec:
+            stages.append(("ec_fmd", self.stage_ec_fmd))
+        stages += [("unitig", self.stage_unitig),
+                   ("clean", self.stage_clean)]
+        for name, fn in stages:
+            ts = time.time()
+            fn()
+            log("run", f"stage {name}: {time.time() - ts:.3f}s")
+        log("run", f"done -> {self._p('p2.mag.gz')} in "
+            f"{time.time() - t0:.3f}s")
+        return self._p("p2.mag.gz")

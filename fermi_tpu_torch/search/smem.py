@@ -18,10 +18,15 @@ Output fields per match mirror fm6_write_smem (smem.c:412-419): [start, end)
 on the read, interval size, left-closed flag, and forward-strand start (for
 the 'T'/'O' full-length flag).
 
-Not ported here: the TPU's phase-split schedule (pass A / pass B; its results
-equal this path's; ROADMAP queue 1, item 3a), and queries longer than
-LONG_QUERY_LEN, which fermi_tpu sends to its native engine (item 3b).
+A batch whose longest query exceeds LONG_QUERY_LEN goes whole to the
+native sequential engine (native/smem.cpp, host), as in fermi_tpu: contig
+scale interval sets would make the fixed-width device buffers mostly
+padding.  Not ported: the TPU's phase-split schedule (pass A / pass B;
+ROADMAP queue 1, item 3a), whose pass B drops a final zero-size SMEM that
+this path and the native engine emit (fault F1).
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -415,7 +420,8 @@ def smem_all(index: FMDIndex, seqs: list[np.ndarray], self_match=False,
 
     Returns per read a list of (start, end, size, left_closed, kf) tuples, in
     the same order the reference fm6_smem emits them, computed on the
-    index's device.
+    index's device (a batch holding a query longer than LONG_QUERY_LEN: by
+    the native engine on the host).
 
     The per-segment interval-list width (maxi) is COVERAGE-ADAPTIVE when
     not given: interval counts scale with index coverage, so the pool loop
@@ -429,10 +435,7 @@ def smem_all(index: FMDIndex, seqs: list[np.ndarray], self_match=False,
         return []
     max_len = max(len(s) for s in seqs)
     if max_len > LONG_QUERY_LEN:
-        raise NotImplementedError(
-            f"query of {max_len} bp: queries longer than {LONG_QUERY_LEN} bp "
-            "need a port of the native sequential SMEM engine "
-            "(native/smem.cpp), ROADMAP queue 1, item 3b")
+        return smem_all_native(index, seqs, self_match)
     if maxi is None:
         maxi = getattr(index, "_smem_maxi", None)
         if maxi is None and B > 4096:
@@ -620,3 +623,61 @@ def format_smem(index: FMDIndex, match) -> str:
     size = min(size, 0xFFFFFFFF)
     return (f"{start}\t{end}\t{size}\t{'OT'[int(closed)]}"
             f"{'OT'[int(kf < index.n_seqs)]}")
+
+
+def _native_index_arrays(index: FMDIndex):
+    """Host-contiguous (blocks, occ widened to int64, cnt[8], n_seqs) of an
+    index for the native engine, cached on the index: a device index pays
+    one device-to-host copy however many batches query it."""
+    cached = getattr(index, "_native_arrays", None)
+    if cached is None:
+        cached = (np.ascontiguousarray(index.bwt_blocks.cpu().numpy()),
+                  np.ascontiguousarray(index.occ.cpu().numpy(), np.int64),
+                  np.ascontiguousarray(index.cnt.cpu().numpy(), np.int64),
+                  index.n_seqs)
+        index._native_arrays = cached
+    return cached
+
+
+def smem_all_native_raw(index: FMDIndex, seqs, self_match=False):
+    """SMEMs by the native sequential engine (native/smem.cpp fsmem_all),
+    raw: (flat int64 [total, 5] rows of (start, end, size, closed, kf) in
+    per-read emission order, counts int64 [n_reads]).  The raw form feeds
+    remap's native paircov without per-match Python objects."""
+    from fermi_tpu_torch import native
+
+    lib = native.get_smem_lib()
+    offsets = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(q) for q in seqs], out=offsets[1:])
+    qbuf = np.ascontiguousarray(
+        np.concatenate([np.asarray(q, np.uint8) for q in seqs])
+        if seqs else np.zeros(0, np.uint8))
+    counts = np.zeros(len(seqs), np.int64)
+    total = ctypes.c_int64()
+    blocks, occ, cnt, n_seqs = _native_index_arrays(index)
+    ptr = lib.fsmem_all(blocks.ctypes.data, occ.ctypes.data, blocks.shape[0],
+                        cnt.ctypes.data, n_seqs, qbuf.ctypes.data,
+                        offsets.ctypes.data, len(seqs), int(self_match),
+                        counts.ctypes.data, ctypes.byref(total))
+    if not ptr:
+        raise MemoryError("fsmem_all: out of memory")
+    try:
+        flat = np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int64)),
+            shape=(total.value + 1, 5))[: total.value].copy()
+    finally:
+        lib.fsmem_free(ptr)
+    return flat, counts
+
+
+def smem_all_native(index: FMDIndex, seqs, self_match=False):
+    """smem_all's tuples from the native sequential engine: the long-query
+    path, where per-segment interval sets reach hundreds."""
+    flat, counts = smem_all_native_raw(index, seqs, self_match)
+    rows = flat.tolist()
+    results, at = [], 0
+    for k in counts.tolist():
+        results.append([(a, b, c, bool(d), e)
+                        for a, b, c, d, e in rows[at: at + k]])
+        at += k
+    return results

@@ -447,3 +447,60 @@ def test_builders_card_vs_cpu(card):
     one = [dna.encode(s) for s in reads]
     assert np.array_equal(bcr_device.bcr_bwt_device(one, device="cuda"),
                           bcr_device.bcr_bwt_device(one, device="cpu"))
+
+
+def test_run_card_vs_cpu(card, tmp_path):
+    """`run` (the unpaired pipeline) on the card writes the CPU's
+    artifacts, compared decompressed, and launches K1."""
+    import gzip
+
+    from fermi_tpu_torch.cli.main import main
+
+    rng = np.random.default_rng(31)
+    genome = rng.integers(0, 4, 4000)
+    fq = tmp_path / "r.fq"
+    with open(fq, "w") as f:
+        for i in range(1600):
+            p = int(rng.integers(0, 3930))
+            r = genome[p:p + 70].copy()
+            e = rng.random(70) < 0.005
+            r[e] = (r[e] + 1) % 4
+            if rng.random() < 0.5:
+                r = 3 - r[::-1]
+            f.write(f"@r{i}\n{''.join('ACGT'[c] for c in r)}\n+\n"
+                    f"{'I' * 70}\n")
+    before = rank_cuda.LAUNCHES["rank6_fused"]
+    for dev in ("cuda", "cpu"):
+        assert main(["run", "--device", dev, "-t", "2", "-k", "40", "-p",
+                     str(tmp_path / dev), str(fq)]) == 0
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] > before
+    for sfx in ("raw.fmd", "ec.fq.gz", "ec.fmd", "p0.mag.gz", "p1.mag.gz",
+                "p2.mag.gz"):
+        read = gzip.open if sfx.endswith(".gz") else open
+        with read(tmp_path / f"cuda.{sfx}", "rb") as a, \
+                read(tmp_path / f"cpu.{sfx}", "rb") as b:
+            assert a.read() == b.read(), sfx
+
+
+def test_chkbwt_rank_check(card, tmp_path, monkeypatch):
+    """`chkbwt -r` on the card checks K1 at every position (in several
+    chunks) and passes; the CPU prints the same lines."""
+    from fermi_tpu_torch.cli import main as cli
+
+    reads = random_reads(300, seed=41, with_genome=True, genome_len=5000)
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    write_fasta(fa, reads)
+    assert cli.main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+    monkeypatch.setattr(cli, "CHKBWT_CHUNK", 4099)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert cli.main(["chkbwt", "--device", dev, "-r", fmd]) == 0
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] - before > 3
+        outs.append([ln for ln in err.getvalue().splitlines()
+                     if "::chkbwt]" in ln])
+    assert outs[0] == outs[1] and "rank check passed" in outs[0][-1]

@@ -58,6 +58,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch.construct.wsort import wsort_bwt
     from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.ops.sw_cuda import sw_score_batch
+    from fermi_tpu_torch.pipeline.driver import Pipeline
     from fermi_tpu_torch.rld import Runs
     from fermi_tpu_torch.search.ecfix_device import build_device_table
     from fermi_tpu_torch.search.unitig_links import compute_links_device
@@ -65,6 +66,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     bwt = np.array([1, 0, 2], np.uint8)
     fa = tmp_path / "r.fa"
     fa.write_text(">r\nACGT\n")
+    long_fa = tmp_path / "long.fa"
+    long_fa.write_text(">q\n" + "ACGT" * 200 + "\n")
     calls = [lambda: api.build_index(["ACGT"]),
              lambda: api.save_index(["ACGT"], str(tmp_path / "x.fmd")),
              lambda: api.load_index(str(tmp_path / "x.fmd")),
@@ -98,10 +101,45 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                                   FMDIndex.from_bwt(bwt), 31, 3),
              lambda: wsort_bwt(bwt[::-1]),
              lambda: device_build_text(bwt[::-1]),
-             lambda: bcr_bwt_device([bwt[:1]])]
+             lambda: bcr_bwt_device([bwt[:1]]),
+             lambda: Pipeline(str(tmp_path / "p")),
+             lambda: main(["run", "-p", str(tmp_path / "p"), str(fa)]),
+             lambda: main(["chkbwt", "-r", str(tmp_path / "x.fmd")]),
+             lambda: main(["exact", str(tmp_path / "x.fmd"), str(long_fa)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "y.fmd").exists()
     assert not (tmp_path / "m.fmd").exists()
     assert not (tmp_path / "y.sub").exists()
+    assert not list(tmp_path.glob("p.*"))
+
+
+def test_host_commands_run_without_cuda(no_cuda, tmp_path, capfdbinary):
+    """clean, bitand, recode, remap and fltuniq are host code: they take no
+    device and run with no CUDA present (remap restores its index on the
+    CPU and takes the contigs' SMEMs from the native engine)."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.construct import suffix
+    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+    from fermi_tpu_torch.core import dna
+
+    rng = np.random.default_rng(3)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, 700))
+    reads = [genome[p:p + 60] for p in range(0, 640, 5)]
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * 60}\n"
+                          for i, r in enumerate(reads)))
+    fmd = str(tmp_path / "r.fmd")
+    text = suffix.build_text([dna.encode(r) for r in reads])
+    rld.write_fmd(rld.Runs.from_bwt(multistring_bwt_device(text, "cpu")),
+                  fmd)
+    contigs = tmp_path / "c.fa"
+    contigs.write_text(f">c\n{genome}\n")
+    assert main(["fltuniq", "-k", "15", str(fq)]) == 0
+    assert main(["remap", fmd, str(contigs)]) == 0
+    assert main(["recode", fmd]) == 0
+    out = capfdbinary.readouterr()
+    assert 100 < out.out.count(b"@r") <= len(reads) and b"\n@c\n" in out.out
+    assert b"[M::remap] avg" in out.err

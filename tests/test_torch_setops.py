@@ -260,3 +260,82 @@ def test_cli_contrast_and_bitand(two_genomes, capfdbinary):
     got = _out(capfdbinary, tmain, ["bitand", a, b, a])
     assert got == _out(capfdbinary, jmain, ["bitand", a, b, a])
     assert got == outs["j"][0]
+
+
+# -- contrast on reads with N (fault F2) ----------------------------------
+
+
+def _revcomp(s):
+    return s.translate(str.maketrans("ACGTN", "TGCAN"))[::-1]
+
+
+@pytest.fixture(scope="module")
+def n_samples(tmp_path_factory):
+    """Two samples of 70 bp reads: a 3 kbp genome with a 200 bp insertion
+    and a variant of it with a SNP every 500 bp; one read in eight has an
+    N at a random position.  Their indexes, .rank arrays and reads."""
+    d = tmp_path_factory.mktemp("contrast_n")
+    rng = np.random.default_rng(17)
+    g = "".join("ACGT"[c] for c in rng.integers(0, 4, 3000))
+    ins = "".join("ACGT"[c] for c in rng.integers(0, 4, 200))
+    v = list(g)
+    for p in range(250, 3000, 500):
+        v[p] = "ACGT"[("ACGT".index(v[p]) + 1) % 4]
+    genomes = (g[:1500] + ins + g[1500:], "".join(v))
+    out = []
+    for tag, genome in zip("ab", genomes):
+        reads = []
+        for p in range(0, len(genome) - 70, 7):
+            r = list(genome[p:p + 70])
+            if rng.random() < 1 / 8:
+                r[int(rng.integers(0, 70))] = "N"
+            r = "".join(r)
+            reads.append(_revcomp(r) if rng.random() < 0.5 else r)
+        fmd, rank = str(d / f"{tag}.fmd"), str(d / f"{tag}.rank")
+        build_my_fmd(reads, fmd)
+        JSS.seqsort(JIndex.restore(fmd), verbose=False).tofile(rank)
+        out.append((fmd, rank, reads))
+    return out
+
+
+def _absent_kmer_reads(reads, other, k):
+    """Brute force of contrast with min_occ 1: read i is selected iff it
+    holds an A/C/G/T string of SUF_LEN to k bases absent from every read of
+    `other` and its reverse complement.  Bool per stored sequence (read i's
+    two strands at 2i and 2i+1)."""
+    seen = set()
+    for r in other:
+        for s in (r, _revcomp(r)):
+            for i in range(len(s)):
+                for j in range(i + TC.SUF_LEN, min(i + k, len(s)) + 1):
+                    seen.add(s[i:j])
+    sel = []
+    for r in reads:
+        hit = False
+        for run in r.split("N"):
+            w = min(k, len(run))
+            if w >= TC.SUF_LEN:
+                hit |= any(run[i:i + w] not in seen
+                           for i in range(len(run) - w + 1))
+        sel.append(hit)
+    return np.repeat(sel, 2)
+
+
+def test_contrast_reads_with_n(n_samples):
+    """fermi_tpu's tip BFS follows A-T only, so a read with an N between a
+    tip and its start is reached on one strand only, and sub_conv rejects
+    the asymmetry.  The port follows N too: its selections are symmetric
+    and equal the brute force on both sides."""
+    (f0, r0, reads0), (f1, r1, reads1) = n_samples
+    k = 31
+    want = JC.fm6_contrast(JIndex.restore(f0), JIndex.restore(f1), k, 1)
+    got = TC.fm6_contrast(FMDIndex.restore(f0, "cpu"),
+                          FMDIndex.restore(f1, "cpu"), k, 1)
+    with pytest.raises(AssertionError, match="asymmetry"):
+        for w, rank_fn in zip(want, (r0, r1)):
+            JC.sub_conv(w, np.fromfile(rank_fn, np.uint64))
+    for g, rank_fn, reads, other in ((got[0], r0, reads0, reads1),
+                                     (got[1], r1, reads1, reads0)):
+        sel = TC.sub_conv(g, np.fromfile(rank_fn, np.uint64))
+        assert np.array_equal(sel, _absent_kmer_reads(reads, other, k))
+        assert 0 < sel.sum() < len(sel)

@@ -121,10 +121,46 @@ def test_short_queries_and_empty_reads(genome):
     assert tsm.smem_all(tidx, [np.zeros(0, np.uint8)] * 3) == [[], [], []]
 
 
+def _n_queries(reads, seed):
+    """Queries from the index's reads: one in three ends in N (a symbol
+    the N-free index lacks), some hold an inner N, some are all N."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, r in enumerate(reads):
+        b = list(r[:int(rng.integers(20, len(r) + 1))])
+        if i % 3 == 0:
+            b[-1] = "N"
+        if i % 4 == 1:
+            b[int(rng.integers(0, len(b)))] = "N"
+        out.append("".join(b))
+    return [dna.encode(s) for s in out + ["N", "AN", "NNN"]]
+
+
+@pytest.mark.parametrize("self_match", [False, True])
+def test_queries_ending_in_n(genome, monkeypatch, self_match):
+    """Fault F1: a query whose last symbol is absent from the index ends in
+    a zero-size SMEM in fermi_tpu's native engine and its unified path, and
+    the port emits it too; fermi_tpu's default split driver drops it (its
+    pass B reads liveness from the size), which the port does not copy."""
+    idx_reads, _, jidx, tidx = genome
+    seqs = _n_queries(idx_reads[:60], 31)
+    got = tsm.smem_all(tidx, seqs, self_match=self_match)
+    assert got == jsm.smem_all_native(jidx, seqs, self_match=self_match)
+    monkeypatch.setenv("FERMI_TPU_SMEM_SPLIT", "0")
+    assert got == jsm.smem_all(jidx, seqs, self_match=self_match)
+    last = [m[-1] for s, m in zip(seqs, got) if s[-1] == 5 and m]
+    assert len(last) > 20
+    assert all(m[2] == 0 and m[1] == m[0] + 1 for m in last)
+    assert [m[:3] for m in got[-2]][1:] == [(1, 2, 0)]
+
+
 def test_long_query_raises(genome):
-    tidx = genome[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsm.smem_all(tidx, [dna.encode("ACGT" * 150)])
+    """A query longer than LONG_QUERY_LEN no longer raises: its batch goes
+    whole to the native engine, which gives fermi_tpu's native tuples
+    (tests/test_torch_remap.py holds it on queries up to 3,000 bp)."""
+    _, seqs, jidx, tidx = genome
+    batch = seqs[:5] + [dna.encode("ACGT" * 150)]
+    assert tsm.smem_all(tidx, batch) == jsm.smem_all_native(jidx, batch)
 
 
 def test_dead_slots_take_key_zero(genome, monkeypatch):
