@@ -15,7 +15,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
 - K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
   query in a 6,000 bp target, longer than one chunk of the kernel's rows);
 - `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
-  ids, and `exact` of 40,000 reads with 1% substitutions; the first 256
+  ids, and `exact` of 40,000 reads with 1% substitutions; the first 128
   queries are searched again on the CPU and must give the same SMEM tuples;
   then K1 on uniform keys at the shape of a loop step, K1 on the keys of
   every loop step of one 4,096-read `exact` batch (dead interval slots at
@@ -34,7 +34,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   one batch of 65,536 of its sequences profiled (device busy and idle
   share, kernels a round, K1's device time);
 - the collect, seqsort and unitig (with and without the .rank array) of a
-  50 kbp window of the reads, and both cleans of its MAG, on the card and
+  25 kbp window of the reads, and both cleans of its MAG, on the card and
   on the CPU (the plain versions), which must be equal;
 - the text of the error-free reads through each device builder alone
   (prefix doubling, the blocked builder: 40 Mi-symbol wsort blocks folded
@@ -50,20 +50,33 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   at least 95% of B's reads inside an insertion are selected, and at
   least 99% of the selected reads on either side touch a difference;
 - merge, sub, contrast and the three device builders on the reads of a
-  50 kbp window of both genomes (the blocked builder in two blocks), on
+  25 kbp window of both genomes (the blocked builder in two blocks), on
   the card and on the CPU: equal;
 - `run -t 8 -k 50`, the unpaired pipeline (run-fermi.pl) from the noisy
-  reads' FASTQ to p2.mag.gz: seconds by stage, and p2's unitigs, N50 and
-  share of bases in unitigs found exactly in the genome (at least 99%);
-  `run` of the 50 kbp window's reads on the card and on the CPU, every
-  artifact equal; `remap` of the run's p2 contigs against its ec.fmd;
+  reads of the genome's first 1 Mbp (FASTQ) to p2.mag.gz: seconds by
+  stage, and p2's unitigs, N50 and share of bases in unitigs found exactly
+  in the genome (at least 99%); `run` of the 25 kbp window's reads on the
+  card and on the CPU, every artifact equal;
 - `chkbwt -r` of the 281 Msym index (K1 at every position against a
   running count), and of a copy with one run corrupted, which must fail;
 - `exact` of 200 queries of 2,000 bp (the native long-query engine) with
   the index on the card and on the CPU: equal bytes;
 - 30x of error-free read pairs (insert 300 +- 20) from a 100 kbp window:
   `build`, `seqsort`, `remap -r` with the window as the one contig (its
-  mean insert within 2% of the drawn one) and `remap -c 2 -D cap`.
+  mean insert within 2% of the drawn one) and `remap -c 2 -D cap`;
+- genome P: the genome with 4 families of short repeats (60, 120, 200 and
+  300 bp, 50 exact copies each) written over it; 30x of 2 x 100 bp pairs
+  (insert 300 +- 20, 1% substitutions at quality 14) in two mate files,
+  `pe2cofq` of them, then `run -P -t 8 -k 50` (run-fermi.pl -P: raw reads
+  to scaftigs, p4.fa.gz, and p5.fq.gz): seconds and K1 launches by stage,
+  scaf's gaps (examined, patched by local assembly, joined by SW, SW
+  failures) and its local assemblies' BWT time, p2 and p4 by count and
+  N50, the share of p4 in scaftigs found exactly in genome P; scaf must
+  examine a gap and launch K1; `run -P` of the pairs of a 100 kbp window
+  holding at least 4 repeat copies on the card and on the CPU, every
+  artifact equal;
+- `example -e -c` of the 25 kbp window's reads on the card and on the
+  CPU: equal.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -103,10 +116,11 @@ N_READS = 1_392_496             # 30x
 N_UNPACK = 1000
 N_CROSS = 512                   # exact queries before the profiled batch
 N_SW_PAIRS = 65_536
-N_CROSS_CPU = 256               # of them, searched again on the CPU
+N_CROSS_CPU = 128               # of them, searched again on the CPU
 N_FIX_SUB = 32_768              # reads of the host-vs-device fix rerun
-CROSS_WINDOW = 50_000           # genome bp whose reads the CPU re-checks
-SETOPS_WINDOW = 50_000          # the same for merge, sub, contrast, builders
+CROSS_WINDOW = 25_000           # genome bp whose reads the CPU re-checks
+RUN_GENOME = 1_000_000          # genome bp whose noisy reads `run` takes
+SETOPS_WINDOW = 25_000          # the same for merge, sub, contrast, builders
 PAIRS_WINDOW = 100_000          # genome bp of remap's read pairs
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_SMS = 132
@@ -1027,8 +1041,12 @@ def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
     window = np.flatnonzero(pos <= CROSS_WINDOW - READ_LEN)
     win_fq = os.path.join(workdir, "window.fq")
     write_fastq(win_fq, seq[window], qual[window])
+    head = np.flatnonzero(pos <= RUN_GENOME - READ_LEN)
+    run_fq = os.path.join(workdir, "run.fq")
+    write_fastq(run_fq, seq[head], qual[head])
     raw_equal = float((seq == truth).all(1).mean())
     log("ec_data", reads=n_reads, raw_equal_share=raw_equal,
+        window_reads=int(window.size), run_reads=int(head.size),
         seconds=time.perf_counter() - t0)
 
     dv = ["--device", str(dev)]
@@ -1080,7 +1098,8 @@ def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
     if outs["0"] != outs["1"]:
         raise AssertionError("device fix output differs from host fix output")
     log("correct_fix_equal", reads=n_sub, bytes=len(outs["0"]), equal=True)
-    return dict(fq=fq, ec_fq=ec_fq, win_fq=win_fq, k1_launches=k1)
+    return dict(fq=fq, ec_fq=ec_fq, win_fq=win_fq, run_fq=run_fq,
+                k1_launches=k1)
 
 
 def seqsort_phase(workdir, ec_fq, dev):
@@ -1685,7 +1704,7 @@ def contrast_phase(rng, workdir, res, dev, kmer=55, min_occ=3):
 
 def cross_check_setops(workdir, res, con, dev, window=SETOPS_WINDOW):
     """merge, sub, contrast and the three device builders on the reads of
-    a window of both genomes (window bp of A from a point 50 kbp before
+    a window of both genomes (window bp of A from half a window before
     B's first insertion, the matching stretch of B with that insertion),
     on `dev` and on the CPU (the plain versions): equal bits and BWTs."""
     from fermi_tpu_torch.algos import contrast, merge, sub
@@ -1743,11 +1762,12 @@ RUN_ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "p0.mag.gz", "p1.mag.gz",
 
 def run_phase(workdir, fq, win_fq, genome, dev, unitig_k=50):
     """`run -t 8 -k 50` (the unpaired pipeline, raw reads to p2.mag.gz) on
-    the noisy reads' FASTQ: seconds by stage from the driver's log, K1
-    launches, p2's unitigs, N50 and the share of its bases in unitigs found
-    exactly in the genome (at least 99%).  Then `run` of the window's
-    reads on `dev` and on the CPU: every artifact equal, decompressed.
-    Returns the prefix of the full run's artifacts and its K1 launches."""
+    the noisy reads of the genome's first RUN_GENOME bp: seconds by stage
+    from the pipeline's log, K1 launches, p2's unitigs, N50 and the share of
+    its bases in unitigs found exactly in the genome (at least 99%).  Then
+    `run` of the window's reads on `dev` and on the CPU: every artifact
+    equal, decompressed.  Returns the prefix of the full run's artifacts
+    and its K1 launches."""
     from fermi_tpu_torch.algos import correct as ec
     from fermi_tpu_torch.search import unitig_links as ul
 
@@ -1770,7 +1790,8 @@ def run_phase(workdir, fq, win_fq, genome, dev, unitig_k=50):
     share = GenomeIndex(genome).exact_share(p2)
     if share < 0.99:
         raise AssertionError(f"run: p2 bases found in the genome: {share}")
-    log("run", seconds=t, stage_seconds=stages, fragments=frags,
+    log("run", genome_bp=RUN_GENOME, seconds=t, stage_seconds=stages,
+        fragments=frags,
         fltuniq_kept=int(kept.group(1)), collect_s=ec.STATS["collect_s"],
         fix_s=ec.STATS["fix_s"], unitig_retrieve_s=st["retrieve_s"],
         unitig_walk_s=st["walk_s"], unitig_get_nei_s=st["getnei_s"],
@@ -1872,19 +1893,6 @@ def exact_long_phase(rng, workdir, genome, fmd, dev, n=200, length=2000):
         smems_per_query=text.count("\nEM\t") / n, equal=True)
 
 
-def remap_phase(workdir, prefix):
-    """`remap` of the run's cleaned contigs (p2.mag.gz) against its ec.fmd
-    (host code): seconds and the mean coverage over the contigs' bases."""
-    out = os.path.join(workdir, "p3.fq")
-    t, _, err = run_cli(["remap", prefix + ".ec.fmd", prefix + ".p2.mag.gz"],
-                        out)
-    lines = open(out, "rb").read().split(b"\n")
-    cov = np.frombuffer(b"".join(lines[3::4]), np.uint8).astype(np.int64) - 33
-    log("remap", contigs=len(lines) // 4, bases=int(cov.size), seconds=t,
-        mean_coverage=float(cov.mean()), insert_line=re.search(
-            r"\[M::remap\] (.*)", err).group(1))
-
-
 def remap_pairs_phase(rng, workdir, genome, dev, window=PAIRS_WINDOW,
                       rl=READ_LEN, insert=300, sd=20):
     """30x of error-free read pairs (mates adjacent, the second reverse
@@ -1925,6 +1933,222 @@ def remap_pairs_phase(rng, workdir, genome, dev, window=PAIRS_WINDOW,
         insert_sd_drawn=float(ins.std()), avg=avg, std=std, cap=cap,
         within_2pct=True, seconds=t, unpaired_lists=text.count("UR:Z:"),
         broken_seconds=t_c, broken_pieces=pieces)
+
+
+# slice 7: the paired chain on genome P
+N_PAIRS = 696_248               # 30x of 2 x 100 bp pairs
+INSERT, INSERT_SD = 300, 20
+# short interspersed repeat families (bp, exact copies), as a bacterial
+# genome's REP/BIME and IS elements
+REPEAT_FAMILIES = ((60, 50), (120, 50), (200, 50), (300, 50))
+PAIRED_WINDOW = 100_000         # genome-P bp of the card-vs-CPU paired run
+PAIRED_ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "ec.rank", "p0.mag.gz",
+                    "p1.mag.gz", "p2.mag.gz", "p3.mag.gz", "p4.fa.gz",
+                    "p5.fq.gz")
+
+
+def genome_p(rng, genome):
+    """The genome with REPEAT_FAMILIES written over it at random
+    non-overlapping places (length unchanged).  Returns (genome P, copy
+    starts, copy lengths), the copies in genome order."""
+    lens = np.array([bp for bp, n in REPEAT_FAMILIES for _ in range(n)])
+    fams = [rng.integers(0, 4, bp).astype(genome.dtype)
+            for bp, _ in REPEAT_FAMILIES]
+    fam_of = np.repeat(np.arange(len(REPEAT_FAMILIES)),
+                       [n for _, n in REPEAT_FAMILIES])
+    order = rng.permutation(lens.size)
+    lens, fam_of = lens[order], fam_of[order]
+    gaps = np.sort(rng.integers(0, len(genome) - lens.sum() + 1, lens.size))
+    starts = gaps + np.concatenate([[0], np.cumsum(lens)[:-1]])
+    g = genome.copy()
+    for st, f in zip(starts, fam_of):
+        g[st: st + len(fams[f])] = fams[f]
+    return g, starts, lens
+
+
+def paired_reads(rng, genome, n):
+    """n pairs of READ_LEN bp, insert INSERT +- INSERT_SD, the second mate
+    reverse-complemented, 1% substitutions at quality 14 (38 elsewhere).
+    Returns (pair starts, inserts, ASCII reads [2n, READ_LEN] with mates
+    adjacent, ASCII quals)."""
+    ins = np.clip(np.rint(rng.normal(INSERT, INSERT_SD, n)).astype(np.int64),
+                  READ_LEN + 10, 1000)
+    pos = rng.integers(0, len(genome) - ins + 1)
+    reads = np.empty((2 * n, READ_LEN), np.int64)
+    reads[0::2] = genome[pos[:, None] + np.arange(READ_LEN)]
+    reads[1::2] = 3 - genome[(pos + ins - 1)[:, None] - np.arange(READ_LEN)]
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = (reads[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    qual = np.where(err, 14 + 33, 38 + 33).astype(np.uint8)
+    return pos, ins, ASCII[reads], qual
+
+
+def write_pairs(path, seq, qual, ids, mate=None):
+    """FASTQ of pairs `ids` (rows 2i, 2i+1 of seq/qual): both mates named
+    @p<i> in turn, or with mate=1/2 that mate alone named @p<i>/<mate>."""
+    rows = (np.stack([2 * ids, 2 * ids + 1], 1).ravel() if mate is None
+            else 2 * ids + mate - 1)
+    tail = b"" if mate is None else b"/%d" % mate
+    with open(path, "wb") as f:
+        for lo in range(0, len(rows), 65536):
+            f.write(b"".join(
+                b"@p%d%s\n%s\n+\n%s\n" % (r >> 1, tail, seq[r].tobytes(),
+                                            qual[r].tobytes())
+                for r in rows[lo: lo + 65536].tolist()))
+
+
+def fasta_seqs(path):
+    """The sequences of a FASTA file (gzipped or not), one line each."""
+    lines = decompressed(path).split(b"\n")
+    return [lines[i + 1] for i in range(0, len(lines) - 1, 2)
+            if lines[i].startswith(b">")]
+
+
+def stage_launches():
+    """Wraps the pipeline driver's log so each `stage NAME` line also
+    records K1's launches since the previous one; returns the dict it fills
+    and a function that restores the log."""
+    from fermi_tpu_torch.ops import rank_cuda
+    from fermi_tpu_torch.pipeline import driver
+
+    counts, orig = {}, driver.log
+    last = [rank_cuda.LAUNCHES["rank6_fused"]]
+
+    def log_(stage, msg):
+        m = re.match(r"stage (\w+):", msg)
+        if m:
+            now = rank_cuda.LAUNCHES["rank6_fused"]
+            counts[m.group(1)] = now - last[0]
+            last[0] = now
+        orig(stage, msg)
+
+    driver.log = log_
+    return counts, lambda: setattr(driver, "log", orig)
+
+
+def paired_phase(rng, workdir, genome, dev, unitig_k=50):
+    """Genome P, 30x of read pairs from it in two mate files, `pe2cofq` of
+    them, then `run -P -t 8 -k 50` (raw reads to p5.fq.gz) on `dev`:
+    seconds and K1 launches by stage, the device peak, scaf's counts, p2
+    and p4 by count and N50 and the share of p4 bases in scaftigs found
+    exactly in genome P; scaf must examine a gap and launch K1.  Then `run
+    -P` of the pairs of a PAIRED_WINDOW bp window holding at least four
+    repeat copies, on `dev` and on the CPU: every artifact equal,
+    decompressed.  Returns the K1 launches of the full run."""
+    from fermi_tpu_torch.algos import scaf
+
+    t0 = time.perf_counter()
+    gp, starts, lens = genome_p(rng, genome)
+    pos, ins, seq, qual = paired_reads(rng, gp, N_PAIRS)
+    ids = np.arange(N_PAIRS)
+    r1, r2 = (os.path.join(workdir, f"r{m}.fq") for m in (1, 2))
+    for mate, path in ((1, r1), (2, r2)):
+        write_pairs(path, seq, qual, ids, mate)
+    log("paired_data", genome_bp=len(gp), repeat_copies=int(starts.size),
+        repeat_bp=int(lens.sum()), pairs=N_PAIRS,
+        insert_drawn=float(ins.mean()), insert_sd_drawn=float(ins.std()),
+        seconds=time.perf_counter() - t0)
+
+    pe_fq = os.path.join(workdir, "pe.fq")
+    t, _, _ = run_cli(["pe2cofq", r1, r2], pe_fq)
+    n_rec = sum(1 for _ in open(pe_fq, "rb")) // 4
+    if n_rec != 2 * N_PAIRS:
+        raise AssertionError(f"pe2cofq wrote {n_rec} records")
+    log("pe2cofq", seconds=t, records=n_rec,
+        mb=os.path.getsize(pe_fq) / 2**20)
+    os.remove(r1)
+    os.remove(r2)
+
+    prefix = os.path.join(workdir, "pe")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    by_stage, restore = stage_launches()
+    try:
+        t, _, err = run_cli(["run", "--device", str(dev), "-P", "-t", "8",
+                             "-k", str(unitig_k), "-p", prefix, pe_fq])
+    finally:
+        restore()
+    k1 = launches()["rank6_fused"]
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else 0)
+    st = dict(scaf.STATS)
+    if st["gaps"] < 1:
+        raise AssertionError("run -P: scaf examined no gap")
+    if dev.type == "cuda" and (k1 < 1 or by_stage.get("scaf", 0) < 1):
+        raise AssertionError("run -P: scaf's mate walk did not launch K1")
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[pipeline::run\] stage (\w+): ([\d.]+)s", err)}
+    t1 = time.perf_counter()
+    p2, p4 = mag_seqs(prefix + ".p2.mag.gz"), fasta_seqs(prefix + ".p4.fa.gz")
+    gidx = GenomeIndex(gp)
+    p5 = decompressed(prefix + ".p5.fq.gz").count(b"\n+\n")
+    insert = json.load(open(prefix + ".insert.json"))
+    log("run_paired", seconds=t, stage_seconds=stages, k1_by_stage=by_stage,
+        k1_launches=k1, device_peak_gb=peak, insert=insert,
+        scaf_gaps=st["gaps"], scaf_assembled=st["assembled"],
+        scaf_sw_joined=st["sw_joined"], scaf_sw_failed=st["sw_failed"],
+        scaf_mates=st["mates"], scaf_mate_walk_s=st["mate_s"],
+        scaf_gap_loop_s=st["gap_loop_s"], mini_bwts=st["mini_bwts"],
+        mini_bwt_s=st["mini_bwt_s"],
+        mini_bwt_ms_per_gap=1e3 * st["mini_bwt_s"] / max(st["gaps"], 1),
+        gap_loop_ms_per_gap=1e3 * st["gap_loop_s"] / max(st["gaps"], 1),
+        **{f"p2_{k}": v for k, v in assembly_stats(p2).items()},
+        **{f"p4_{k}": v for k, v in assembly_stats(p4).items()},
+        p2_exact_share=gidx.exact_share(p2),
+        p4_exact_share=gidx.exact_share(p4), p5_records=p5,
+        check_seconds=time.perf_counter() - t1)
+    del gidx
+
+    for first in starts:
+        w = max(0, int(first) - 2000)
+        inside = (starts >= w) & (starts + lens <= w + PAIRED_WINDOW)
+        if inside.sum() >= 4:
+            break
+    else:
+        raise AssertionError("no window of genome P holds 4 repeat copies")
+    win = np.flatnonzero((pos >= w) & (pos + ins <= w + PAIRED_WINDOW))
+    win_fq = os.path.join(workdir, "pe_window.fq")
+    write_pairs(win_fq, seq, qual, win)
+    secs = {}
+    for d in (str(dev), "cpu"):
+        secs[d], _, _ = run_cli(["run", "--device", d, "-P", "-t", "8", "-k",
+                                 str(unitig_k), "-p",
+                                 os.path.join(workdir, f"wpe_{d}"), win_fq])
+    for sfx in PAIRED_ARTIFACTS:
+        a = decompressed(os.path.join(workdir, f"wpe_{dev}.{sfx}"))
+        if a != decompressed(os.path.join(workdir, f"wpe_cpu.{sfx}")):
+            raise AssertionError(f"run -P: {sfx} differs card vs CPU")
+    w4 = fasta_seqs(os.path.join(workdir, "wpe_cpu.p4.fa.gz"))
+    log("run_paired_window", window_start=w, window_bp=PAIRED_WINDOW,
+        repeat_copies=int(inside.sum()), pairs=int(win.size),
+        artifacts=len(PAIRED_ARTIFACTS), equal=True, p4_scaftigs=len(w4),
+        scaf_gaps=scaf.STATS["gaps"], device_seconds=secs[str(dev)],
+        cpu_seconds=secs["cpu"])
+    return k1
+
+
+def example_phase(workdir, win_fq, dev):
+    """`example -e -c` (the API walk-through: correct, then a local
+    assembly, cleaned) of the CROSS_WINDOW reads on `dev` and on the CPU:
+    equal MAG bytes; the card's run launches K1 (the collect)."""
+    outs, secs = {}, {}
+    for d in (str(dev), "cpu"):
+        reset_launches()
+        secs[d], outs[d], _ = run_cli(["example", "--device", d, "-e", "-c",
+                                       win_fq])
+        if d == str(dev):
+            k1 = launches()["rank6_fused"]
+    if dev.type == "cuda" and k1 < 1:
+        raise AssertionError("example -e did not launch K1")
+    if outs[str(dev)] != outs["cpu"]:
+        raise AssertionError("example -e -c differs card vs CPU")
+    seqs = [ln for ln in outs["cpu"].split("\n")[1::4]]
+    log("example", window_bp=CROSS_WINDOW, seconds=secs[str(dev)],
+        cpu_seconds=secs["cpu"], k1_launches=k1, equal=True,
+        **assembly_stats(seqs))
+    return k1
+
 
 
 def ptxas_report(jobs):
@@ -2016,14 +2240,17 @@ def main():
         cross_check_unitig(workdir, win_fmd, win_rank, dev)
         # slice 6: each phase draws from a stream of its own, so the draws
         # of the phases around them stay as they were
-        run = run_phase(workdir, ec_res["fq"], ec_res["win_fq"],
+        run = run_phase(workdir, ec_res["run_fq"], ec_res["win_fq"],
                         res["genome"], dev)
-        remap_phase(workdir, run["prefix"])
         k1_chkbwt = chkbwt_phase(workdir, res["fmd"], dev)
         exact_long_phase(np.random.default_rng(args.seed + 1), workdir,
                          res["genome"], res["fmd"], dev)
         remap_pairs_phase(np.random.default_rng(args.seed + 2), workdir,
                           res["genome"], dev)
+        # slice 7, from a stream of its own too
+        k1_paired = paired_phase(np.random.default_rng(args.seed + 3),
+                                 workdir, res["genome"], dev)
+        k1_example = example_phase(workdir, ec_res["win_fq"], dev)
         setops = [builders_phase(workdir, res, dev),
                   merge_phase(workdir, res, dev),
                   sub_phase(rng, workdir, res, dev)]
@@ -2032,7 +2259,8 @@ def main():
         cross_check_setops(workdir, res, con, dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"] + ut["k1_launches"]
-                   + run["k1_launches"] + k1_chkbwt + sum(setops))
+                   + run["k1_launches"] + k1_chkbwt + sum(setops)
+                   + k1_paired + k1_example)
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

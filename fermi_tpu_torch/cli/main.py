@@ -1,11 +1,14 @@
 """fermi-compatible command line of the port: build (and build -i),
 unpack, exact, chkbwt, correct, seqsort/seqrank, unitig, clean, merge, sub,
-contrast, bitand, recode, remap, fltuniq, and run (the unpaired pipeline).
+contrast, bitand, recode, remap, scaf, example, the sequence tools
+(splitfa, fltuniq, trimseq, pe2cofq, cg2cofq, cnt2qual), and run (the
+pipeline, unpaired or paired with -P).
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
-mirrors reference main.c.  Each subcommand that queries an index runs on
-CUDA unless `--device cpu` (or another device) is given; `clean`, `bitand`,
-`recode`, `remap` and `fltuniq` are host code, as in fermi_tpu.
+mirrors reference main.c.  Each subcommand that queries or builds an index
+runs on CUDA unless `--device cpu` (or another device) is given; `clean`,
+`bitand`, `recode`, `remap` and the sequence tools are host code, as in
+fermi_tpu.
 """
 
 import argparse
@@ -522,26 +525,136 @@ def cmd_remap(args):
     return 0
 
 
-def _add_fltuniq(sub):
+def _add_scaf(sub):
+    p = sub.add_parser("scaf", help="generate scaftigs")
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="accepted for compatibility and ignored, as in "
+                        "fermi_tpu")
+    p.add_argument("-m", dest="min_supp", type=int, default=5)
+    p.add_argument("-P", dest="pr_links", action="store_true")
+    p.add_argument("-a", dest="a_thres", type=float, default=20.0)
+    p.add_argument("-p", dest="p_thres", type=float, default=1e-20)
+    _device_arg(p)
+    p.add_argument("fmd")
+    p.add_argument("mag")
+    p.add_argument("avg", type=float)
+    p.add_argument("std", type=float)
+    p.set_defaults(func=cmd_scaf)
+
+
+def cmd_scaf(args):
+    """Scaftigs (FASTA) on stdout: mate reads retrieved on the device,
+    local assemblies sorted there and walked on the host."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.algos.scaf import scaf_core
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    device = resolve_device(args.device)
+    scaf_core(FMDIndex.restore(args.fmd, device), args.mag, args.avg,
+              args.std, min_supp=args.min_supp, a_thres=args.a_thres,
+              p_thres=args.p_thres, pr_links=args.pr_links, out_fp=sys.stdout)
+    return 0
+
+
+def _add_sequtils(sub):
+    p = sub.add_parser("splitfa", help="split a FASTA/Q file")
+    p.add_argument("fastx")
+    p.add_argument("prefix")
+    p.add_argument("n_files", nargs="?", type=int, default=8)
+    p.set_defaults(func=lambda a: _sequtil("splitfa", a))
+
     p = sub.add_parser("fltuniq", help="filter reads containing unique mers")
     p.add_argument("-k", dest="k", type=int, default=0)
     p.add_argument("fastx")
-    p.set_defaults(func=cmd_fltuniq)
+    p.set_defaults(func=lambda a: _sequtil("fltuniq", a))
+
+    p = sub.add_parser("trimseq", help="trim a FASTA/Q file")
+    p.add_argument("-q", dest="min_q", type=int, default=3)
+    p.add_argument("-l", dest="min_l", type=int, default=20)
+    p.add_argument("-N", dest="keep_ambi", action="store_true")
+    p.add_argument("fastx")
+    p.set_defaults(func=lambda a: _sequtil("trimseq", a))
+
+    p = sub.add_parser("pe2cofq", help="convert split pefq to collated fastq")
+    p.add_argument("fq1")
+    p.add_argument("fq2")
+    p.set_defaults(func=lambda a: _sequtil("pe2cofq", a))
+
+    p = sub.add_parser("cg2cofq", help="convert cgfq to collated fastq")
+    p.add_argument("fastx")
+    p.set_defaults(func=lambda a: _sequtil("cg2cofq", a))
+
+    p = sub.add_parser("cnt2qual", help="scale count-style qualities")
+    p.add_argument("fastx")
+    p.add_argument("q", nargs="?", type=int, default=17)
+    p.set_defaults(func=lambda a: _sequtil("cnt2qual", a))
 
 
-def cmd_fltuniq(args):
-    """The reads without a unique k-mer on stdout (host code)."""
+def _sequtil(which, args):
+    """The sequence tools (host code); output on stdout, splitfa's in its
+    files."""
     from fermi_tpu_torch.cli import sequtils as su
 
-    su.fltuniq(args.fastx, sys.stdout, k=args.k)
+    if which == "splitfa":
+        su.splitfa(args.fastx, args.prefix, args.n_files)
+    elif which == "fltuniq":
+        su.fltuniq(args.fastx, sys.stdout, k=args.k)
+    elif which == "trimseq":
+        su.trimseq(args.fastx, sys.stdout, min_l=args.min_l, min_q=args.min_q,
+                   drop_ambi=not args.keep_ambi)
+    elif which == "pe2cofq":
+        su.pe2cofq(args.fq1, args.fq2, sys.stdout)
+    elif which == "cg2cofq":
+        su.cg2cofq(args.fastx, sys.stdout)
+    elif which == "cnt2qual":
+        su.cnt2qual(args.fastx, sys.stdout, q=args.q)
+    return 0
+
+
+def _add_example(sub):
+    p = sub.add_parser("example", help="light-weight assembly via the API")
+    p.add_argument("-e", dest="do_ec", action="store_true")
+    p.add_argument("-U", dest="skip_unitig", action="store_true")
+    p.add_argument("-c", dest="do_clean", action="store_true")
+    p.add_argument("-k", dest="ec_k", type=int, default=-1)
+    p.add_argument("-l", dest="unitig_k", type=int, default=-1)
+    _device_arg(p)
+    p.add_argument("fastx")
+    p.set_defaults(func=cmd_example)
+
+
+def cmd_example(args):
+    """The reference's API walk-through (example.c) over api.py: -e
+    corrects the reads (device collect, host fix), -U writes them and
+    stops; else their unitigs (BWT sorted on the device, the walk on the
+    host), cleaned with -c, as MAG on stdout."""
+    from fermi_tpu_torch import api, resolve_device
+
+    device = resolve_device(args.device)
+    seqs, quals = api.read_seqs(args.fastx)
+    if args.do_ec:
+        seqs, quals = api.correct(seqs, quals, k=args.ec_k, device=device)
+    if args.skip_unitig:
+        api.write_seqs(seqs, quals, sys.stdout)
+        return 0
+    if args.unitig_k > 0:
+        mm = args.unitig_k
+    else:
+        mm = int(api.seq_len_quantile(seqs, 0.25) * 0.33 + 0.499)
+        sys.stderr.write(f"[M::example] choose k-mer size as {mm}\n")
+    g = api.unitig(seqs, mm, device)
+    if args.do_clean:
+        api.clean(g, aggressive=True)
+    api.write_mag(g, sys.stdout)
     return 0
 
 
 def _add_run(sub):
     p = sub.add_parser(
-        "run", help="full assembly pipeline (run-fermi.pl), unpaired: "
-                    "raw.fmd, ec.fq.gz, ec.fmd, p0-p2.mag.gz; unitig gives "
-                    "`unitig -t 1`'s bytes whatever -t is")
+        "run", help="full assembly pipeline (run-fermi.pl): raw.fmd, "
+                    "ec.fq.gz, ec.fmd, p0-p2.mag.gz; with -P also ec.rank, "
+                    "p3.mag.gz, p4.fa.gz (scaftigs) and p5.fq.gz; unitig "
+                    "gives `unitig -t 1`'s bytes whatever -t is")
     p.add_argument("-P", dest="paired", action="store_true",
                    help="input is collated/interleaved paired FASTQ")
     p.add_argument("-C", dest="skip_ec", action="store_true")
@@ -557,10 +670,8 @@ def _add_run(sub):
 def cmd_run(args):
     from fermi_tpu_torch.pipeline.driver import Pipeline
 
-    if args.paired:
-        return _not_ported("run", "-P (the paired chain)", "item 11b")
     Pipeline(args.prefix, n_threads=args.n_threads, unitig_k=args.unitig_k,
-             trim_l=args.trim_l, skip_ec=args.skip_ec,
+             paired=args.paired, trim_l=args.trim_l, skip_ec=args.skip_ec,
              device=args.device).run(args.fastx)
     return 0
 
@@ -574,7 +685,8 @@ def main(argv=None):
     for add in (_add_build, _add_unpack, _add_exact, _add_chkbwt,
                 _add_correct, _add_seqsort, _add_unitig, _add_clean,
                 _add_merge, _add_sub, _add_contrast, _add_bitand, _add_recode,
-                _add_remap, _add_fltuniq, _add_run):
+                _add_remap, _add_scaf, _add_sequtils, _add_example,
+                _add_run):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

@@ -1,13 +1,16 @@
-"""fltuniq, the read filter of the assembly pipeline (reference
-seq.c:149-199): drop every read that holds a k-mer occurring once in the
-whole file (and its mate, when consecutive records share a name).
+"""Sequence utility commands (reference seq.c:58-373, cmd.c:13-45):
+splitfa, fltuniq, trimseq, pe2cofq, cg2cofq, cnt2qual.
 
-The port of fermi_tpu/cli/sequtils.py's fltuniq part.  Host code: plain
+The port of fermi_tpu/cli/sequtils.py; host stream tools, with fermi_tpu's
+output bytes.  fltuniq, the read filter of the assembly pipeline
+(seq.c:149-199), drops every read that holds a k-mer occurring once in the
+whole file (and its mate, when consecutive records share a name): plain
 4-line FASTQ is scanned as spans over the raw bytes and decided by the
 native filter (native/sequtil.cpp fflt_keep); any other input (FASTA,
 multi-line records) goes record by record through the same filter.
 `_flt_keep_numpy` is the filter's plain version, which the tests hold the
-native one against.
+native one against.  pe2cofq collates two mate files into the interleaved
+FASTQ that `run -P` reads.
 """
 
 import gzip
@@ -32,6 +35,17 @@ def write_seq(rec) -> str:
     if rec.qual:
         s += f"+\n{rec.qual}\n"
     return s
+
+
+def splitfa(in_path, prefix, n_files=8):
+    outs = [gzip.open(f"{prefix}.{i:04d}.fq.gz", "wt", compresslevel=1)
+            for i in range(n_files)]
+    n_seqs = 0
+    for rec in fastx.read_fastx(in_path):
+        outs[(n_seqs >> 1) % n_files].write(write_seq(rec))
+        n_seqs += 1
+    for f in outs:
+        f.close()
 
 
 def _kmer_codes(seq: str, k: int):
@@ -286,3 +300,117 @@ def _flt_keep_numpy(recs, k):
     win_end = np.maximum(starts + lens - k + 1, starts)
     n_bad = cs_bad[win_end] - cs_bad[starts]
     return no_inval & ((lens < k) | (n_bad == 0))
+
+
+def trimseq(in_path, out_fp, min_l=20, min_q=3, drop_ambi=True):
+    out = []
+    prev_name = None
+    for rec in fastx.read_fastx(in_path):
+        is_paired = False
+        if prev_name is not None and len(rec.name) == len(prev_name) \
+           and len(prev_name):
+            if rec.name[:-1] == prev_name[:-1]:
+                c1, c2 = prev_name[-1], rec.name[-1]
+                if c1 == c2:
+                    is_paired = True
+                elif len(prev_name) >= 2 and prev_name[-2] == "/" \
+                        and c1.isdigit() and c2.isdigit():
+                    is_paired = True
+        if is_paired:
+            if not out:
+                prev_name = rec.name
+                continue
+        else:
+            if out:
+                out_fp.write("".join(out))
+            out = []
+        left, right = 0, len(rec.seq)
+        drop = False
+        if min_q > 0 and rec.qual:
+            q = np.frombuffer(rec.qual.encode(), np.uint8).astype(np.int32) - 33
+            s = mx = 0
+            max_i = right
+            for i in range(right - 1, left - 1, -1):
+                s += min_q - q[i]
+                if s < 0:
+                    break
+                if mx < s:
+                    mx, max_i = s, i
+            right = max_i
+            s = mx = 0
+            max_i = -1
+            for i in range(0, right):
+                s += min_q - q[i]
+                if s < 0:
+                    break
+                if mx < s:
+                    mx, max_i = s, i
+            left = max_i + 1
+            if right - left < min_l:
+                drop = True
+        if not drop and drop_ambi:
+            sub = dna.encode(rec.seq[left:right])
+            if (sub >= 5).any():
+                drop = True
+        if not drop:
+            r2 = fastx.SeqRecord(rec.name, rec.seq[left:right],
+                                 rec.qual[left:right] if rec.qual else None,
+                                 rec.comment)
+            out.append(write_seq(r2))
+        elif is_paired:
+            out = []
+        prev_name = rec.name
+    if out:
+        out_fp.write("".join(out))
+
+
+def pe2cofq(in1, in2, out_fp):
+    it1 = fastx.read_fastx(in1)
+    it2 = fastx.read_fastx(in2)
+    for r1 in it1:
+        try:
+            r2 = next(it2)
+        except StopIteration:
+            break
+        name = r1.name
+        if len(name) > 2 and name[-2] == "/" and name[-1].isdigit():
+            name = name[:-2]
+        r1 = fastx.SeqRecord(name, r1.seq, r1.qual, r1.comment)
+        r2 = fastx.SeqRecord(name, r2.seq, r2.qual, r2.comment)
+        out_fp.write(write_seq(r1))
+        out_fp.write(write_seq(r2))
+
+
+def cg2cofq(in_path, out_fp):
+    for rec in fastx.read_fastx(in_path):
+        i = 0
+        while i < len(rec.seq) and rec.seq[i].isalpha():
+            i += 1
+        tag = "@" if rec.qual else ">"
+        out_fp.write(f"{tag}{rec.name}\n{rec.seq[:i]}\n")
+        if rec.qual:
+            out_fp.write(f"+\n{rec.qual[:i]}\n")
+        j = i
+        while j < len(rec.seq) and not rec.seq[j].isalpha():
+            j += 1
+        if j != len(rec.seq):
+            out_fp.write(f"{tag}{rec.name}\n{rec.seq[j:]}\n")
+            if rec.qual:
+                out_fp.write(f"+\n{rec.qual[j:]}\n")
+
+
+def cnt2qual(in_path, out_fp, q=17):
+    for rec in fastx.read_fastx(in_path):
+        qual = rec.qual
+        if qual:
+            arr = np.frombuffer(qual.encode(), np.uint8).astype(np.int32)
+            arr = np.minimum(q * (arr - 33) + 33, 126)
+            qual = arr.astype(np.uint8).tobytes().decode("latin1")
+        out_fp.write(f"@{rec.name}")
+        if rec.comment:
+            out_fp.write(f"\t{rec.comment}\n")
+        else:
+            out_fp.write("\n")
+        out_fp.write(rec.seq + "\n")
+        if qual:
+            out_fp.write(f"+\n{qual}\n")

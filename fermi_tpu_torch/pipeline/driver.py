@@ -1,20 +1,23 @@
-"""End-to-end assembly pipeline (run-fermi.pl), unpaired chain.
+"""End-to-end assembly pipeline (run-fermi.pl), unpaired and paired.
 
 The port of fermi_tpu/pipeline/driver.py.  The same artifact DAG and stage
 semantics as the reference pipeline (run-fermi.pl:53-104): stages run in
 process, each writes a durable artifact and is skipped when that artifact
 exists, so an interrupted run resumes.  Insert-size statistics flow through
 a JSON sidecar (insert.json) instead of being grepped out of stderr logs.
+Unpaired reads end at p2.mag.gz; paired reads (interleaved FASTQ, mates
+adjacent) go on through the .rank walk, remap (p3.mag.gz), scaf
+(p4.fa.gz, scaftigs) and the final remap (p5.fq.gz).
 
 On the Pipeline's device (CUDA unless another device is named): every
 index build (prefix doubling, or the blocked builder for texts of
 suffix_device.MAX_TEXT symbols and more), the error-correction collect,
-the .rank walk and unitig's link records.  On the host: the read encoders
-and fltuniq (native), the correction fix and the unitig stitch (native),
-clean and remap.  Unitig's output is `unitig -t 1`'s bytes whatever the
-thread count.  The paired chain's scaffolding stages (scaf, the final
-remap; ROADMAP queue 1 item 11b) are not ported: `run` of a paired
-Pipeline raises before its first stage.
+the .rank walk, unitig's link records, and scaf's mate walks and local
+assemblies' sorts.  On the host: the read encoders and fltuniq (native),
+the correction fix and the unitig stitch (native), clean, remap, and
+scaf's link analysis and local unitig walks.  Unitig's output is `unitig
+-t 1`'s bytes whatever the thread count.  The corrected reads' index stays
+on the device from ec_fmd to the last stage that reads it.
 """
 
 import ctypes
@@ -357,24 +360,56 @@ class Pipeline:
         with open(self._p("insert.json"), "w") as fp:
             json.dump({"avg": avg, "std": std, "cap": cap}, fp)
 
+    def stage_scaf(self):
+        out = self._p("p4.fa.gz")
+        if not self.paired or os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos.scaf import scaf_core
+
+        with open(self._p("insert.json")) as fp:
+            stats = json.load(fp)
+        # the mates are walked on the cached device index: no host mirror
+        with _gz_text_writer(out + ".tmp") as fp:
+            scaf_core(self._fmd(self._p("ec.fmd")), self._p("p3.mag.gz"),
+                      stats["avg"], stats["std"], pr_links=True, out_fp=fp)
+        os.rename(out + ".tmp", out)
+
+    def stage_final_remap(self):
+        out = self._p("p5.fq.gz")
+        if not self.paired or os.path.exists(out):
+            return
+        from fermi_tpu_torch.algos.remap import remap
+
+        with open(self._p("insert.json")) as fp:
+            stats = json.load(fp)
+        sorted_arr = np.fromfile(self._p("ec.rank"), np.uint64)
+        with _gz_text_writer(out + ".tmp") as fp:
+            remap(self._fmd(self._p("ec.fmd")), self._p("p4.fa.gz"), fp,
+                  sorted_arr, min_pcv=2, max_dist=stats["cap"])
+        os.rename(out + ".tmp", out)
+
     def run(self, fastx_paths):
-        """The unpaired chain, raw reads to p2.mag.gz.  Seconds of each
-        stage go to the log (`[pipeline::run] stage NAME: S s`)."""
-        if self.paired:
-            raise NotImplementedError(
-                "run of paired reads (scaf and the final remap) is not "
-                "ported to fermi_tpu_torch yet (ROADMAP queue 1, item 11b)")
+        """The chain from raw reads to p2.mag.gz, or for paired reads to
+        p5.fq.gz.  Seconds of each stage go to the log (`[pipeline::run]
+        stage NAME: S s`)."""
         t0 = time.time()
         stages = [("raw_fmd", lambda: self.stage_raw_fmd(fastx_paths)),
                   ("correct", lambda: self.stage_correct(fastx_paths))]
         if not self.skip_ec:
             stages.append(("ec_fmd", self.stage_ec_fmd))
+        if self.paired:
+            stages.append(("rank", self.stage_rank))
         stages += [("unitig", self.stage_unitig),
                    ("clean", self.stage_clean)]
+        if self.paired:
+            stages += [("remap", self.stage_remap),
+                       ("scaf", self.stage_scaf),
+                       ("final_remap", self.stage_final_remap)]
         for name, fn in stages:
             ts = time.time()
             fn()
             log("run", f"stage {name}: {time.time() - ts:.3f}s")
-        log("run", f"done -> {self._p('p2.mag.gz')} in "
-            f"{time.time() - t0:.3f}s")
-        return self._p("p2.mag.gz")
+        self._drop(self._p("ec.fmd"))
+        final = self._p("p5.fq.gz" if self.paired else "p2.mag.gz")
+        log("run", f"done -> {final} in {time.time() - t0:.3f}s")
+        return final

@@ -504,3 +504,62 @@ def test_chkbwt_rank_check(card, tmp_path, monkeypatch):
         outs.append([ln for ln in err.getvalue().splitlines()
                      if "::chkbwt]" in ln])
     assert outs[0] == outs[1] and "rank check passed" in outs[0][-1]
+
+
+def test_run_paired_card_vs_cpu(card, tmp_path, monkeypatch):
+    """`run -P` (the paired chain to p5) on the card writes the CPU's
+    artifacts, compared decompressed; scaf walks its mates through K1 and
+    sorts its local assemblies on the card.  The genome is two copies of a
+    160 bp repeat around unique sequence, with a dead zone where no read
+    starts, so p4 holds joined scaftigs."""
+    import gzip
+
+    from fermi_tpu_torch.algos import scaf
+    from fermi_tpu_torch.cli.main import main
+
+    rng = np.random.default_rng(1)
+    rep = rng.integers(0, 4, 160)
+    segs = [rng.integers(0, 4, n) for n in (2200, 1400, 2000, 1500)]
+    genome = np.concatenate([segs[0], rep, segs[1], segs[2], rep, segs[3]])
+    jn = 2200 + 160 + 1400
+    fq = tmp_path / "pe.fq"
+    with open(fq, "w") as f:
+        for i in range(4000):
+            ins = int(np.clip(rng.normal(240, 22), 80, 450))
+            pos = int(rng.integers(0, len(genome) - ins))
+            r0 = pos + ins - 70
+            if jn - 38 < pos < jn + 10 or jn - 38 < r0 < jn + 10:
+                continue
+            for r in (genome[pos:pos + 70], 3 - genome[r0:r0 + 70][::-1]):
+                f.write(f"@p{i}\n{''.join('ACGT'[c] for c in r)}\n+\n"
+                        f"{'I' * 70}\n")
+    calls = []
+    walk = scaf.retrieve_mates
+
+    def spy(index, ids):
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        out = walk(index, ids)
+        calls.append((index.device.type,
+                      rank_cuda.LAUNCHES["rank6_fused"] - before))
+        return out
+
+    monkeypatch.setattr(scaf, "retrieve_mates", spy)
+    for dev in ("cuda", "cpu"):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert main(["run", "--device", dev, "-P", "-t", "2", "-k", "40",
+                         "-p", str(tmp_path / dev), str(fq)]) == 0
+        assert "stage final_remap" in err.getvalue()
+        if dev == "cuda":
+            assert scaf.STATS["gaps"] >= 1 and scaf.STATS["mini_bwts"] >= 1
+    assert [c[0] for c in calls] == ["cuda", "cpu"]
+    assert calls[0][1] > 0 and calls[1][1] == 0
+    for sfx in ("raw.fmd", "ec.fq.gz", "ec.fmd", "ec.rank", "p0.mag.gz",
+                "p1.mag.gz", "p2.mag.gz", "p3.mag.gz", "p4.fa.gz",
+                "p5.fq.gz"):
+        read = gzip.open if sfx.endswith(".gz") else open
+        with read(tmp_path / f"cuda.{sfx}", "rb") as a, \
+                read(tmp_path / f"cpu.{sfx}", "rb") as b:
+            assert a.read() == b.read(), sfx
+    with gzip.open(tmp_path / "cuda.p4.fa.gz", "rb") as f:
+        assert f.read().count(b">") >= 1

@@ -105,7 +105,13 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
              lambda: Pipeline(str(tmp_path / "p")),
              lambda: main(["run", "-p", str(tmp_path / "p"), str(fa)]),
              lambda: main(["chkbwt", "-r", str(tmp_path / "x.fmd")]),
-             lambda: main(["exact", str(tmp_path / "x.fmd"), str(long_fa)])]
+             lambda: main(["exact", str(tmp_path / "x.fmd"), str(long_fa)]),
+             lambda: main(["run", "-P", "-p", str(tmp_path / "p"), str(fa)]),
+             lambda: main(["scaf", str(tmp_path / "x.fmd"), str(fa), "240",
+                           "20"]),
+             lambda: main(["example", str(fa)]),
+             lambda: main(["example", "-e", "-U", str(fa)]),
+             lambda: api.unitig(["ACGT"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

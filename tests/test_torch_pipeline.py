@@ -22,12 +22,15 @@ from fermi_tpu_torch.core import fastx as tfastx
 from fermi_tpu_torch.pipeline.driver import Pipeline as TPipeline
 
 from test_pipeline import make_pe_fastq
+from test_torch_scaf import linked_pair_reads
 from util import write_fasta
 
 torch.set_num_threads(1)
 
 ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "p0.mag.gz", "p1.mag.gz",
              "p2.mag.gz")
+PAIRED_ARTIFACTS = ARTIFACTS[:3] + ("ec.rank",) + ARTIFACTS[3:] + (
+    "p3.mag.gz", "p4.fa.gz", "p5.fq.gz")
 
 
 def _read(path):
@@ -91,8 +94,7 @@ def _out(main, argv):
 
 
 def test_cli_run(reads, tmp_path):
-    """`run` (and `run -C`) write the Pipeline's artifacts; `-P` exits 1
-    naming its roadmap item."""
+    """`run` (and `run -C`) write the Pipeline's artifacts."""
     for flag in ([], ["-C"]):
         pre = str(tmp_path / f"r{len(flag)}")
         rc, _, err = _out(tmain, ["run", "--device", "cpu", *flag, "-t", "2",
@@ -103,13 +105,42 @@ def test_cli_run(reads, tmp_path):
         jp.run([reads])
         for sfx in ARTIFACTS[2:]:
             assert _read(f"{pre}.{sfx}") == _read(f"{pre}j.{sfx}"), sfx
-    rc, _, err = _out(tmain, ["run", "--device", "cpu", "-P", "-p",
-                              str(tmp_path / "pe"), reads])
-    assert rc == 1 and "item 11b" in err
-    assert not list(tmp_path.glob("pe.*"))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        TPipeline(str(tmp_path / "pe"), paired=True, device="cpu").run(
-            [reads])
+
+
+@pytest.fixture(scope="module")
+def linked_fq(tmp_path_factory):
+    """Interleaved FASTQ of tests/test_scaf.py's linked-pair genome (a
+    repeat, and a dead zone where no read starts): its scaftigs, unlike
+    those of make_pe_fastq's random genome, are not empty."""
+    path = tmp_path_factory.mktemp("lk") / "linked.fq"
+    reads = linked_pair_reads()
+    with open(path, "w") as f:
+        for i, s in enumerate(reads):
+            f.write(f"@p{i // 2}\n{s}\n+\n{'I' * len(s)}\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("which", ["random", "linked"])
+def test_cli_run_paired(reads, linked_fq, tmp_path, which):
+    """`run -P` writes every artifact of fermi_tpu's Pipeline(paired=True)
+    (one unitig thread), raw.fmd through p5.fq.gz, compared decompressed:
+    on make_pe_fastq's genome, whose p4 and p5 are empty (the final remap
+    of no scaftig), and on the linked-pair genome, whose are not."""
+    fq = reads if which == "random" else linked_fq
+    pre = str(tmp_path / "t")
+    rc, _, err = _out(tmain, ["run", "--device", "cpu", "-P", "-t", "2", "-k",
+                              "40", "-p", pre, fq])
+    assert rc == 0 and "stage scaf" in err and "stage final_remap" in err
+    JPipeline(str(tmp_path / "j"), n_threads=2, unitig_k=40, paired=True,
+              unitig_threads=1).run([fq])
+    for sfx in PAIRED_ARTIFACTS:
+        assert _read(f"{pre}.{sfx}") == _read(tmp_path / f"j.{sfx}"), sfx
+    p4, p5 = _read(f"{pre}.p4.fa.gz"), _read(f"{pre}.p5.fq.gz")
+    if which == "random":
+        assert p4 == p5 == b""
+        assert "avg = 0.00 std = 0.00 cap = 1" in err
+    else:
+        assert p4.count(b">") >= 1 and p5.count(b"\n+\n") >= 1
 
 
 # -- the read encoders and fltuniq ---------------------------------------
