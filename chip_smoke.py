@@ -76,7 +76,19 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   holding at least 4 repeat copies on the card and on the CPU, every
   artifact equal;
 - `example -e -c` of the 25 kbp window's reads on the card and on the
-  CPU: equal.
+  CPU: equal;
+- the dp×tp layer (ranks are processes): two ranks sharing the card over
+  gloo, the 281 Msym index split tp=2 (each rank restores the whole
+  `.fmd` on the host and keeps its half of the rank rows on the card),
+  ShardedSMEM of the first 4,096 `exact` queries equal to the
+  single-process port's; the same through a world of one over NCCL;
+  dp=2 `fm_merge_sharded` of two of the 4 parts, byte-equal to
+  `fm_merge`; `dryrun_multichip(4)` on the card; per rank its seconds,
+  K1 launches (each rank must launch K1), all-reduces and their ms, device
+  peak and backend;
+- `ropebwt -a bpr|bcr|sais` of the 25 kbp window's reads, text and `-b`:
+  the six outputs equal in each format, and the device engines' `-b`
+  equal to theirs on the CPU.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -2151,6 +2163,230 @@ def example_phase(workdir, win_fq, dev):
 
 
 
+# -- slice 8: the dp×tp layer on torch.distributed, ropebwt ---------------
+
+
+N_DIST_QUERIES = 4096           # `exact` queries of the sharded SMEM
+LANES_STEP = 2048               # lanes of an SMEM loop step (smem.LANES)
+DIST_TIMEOUT_S = 300            # bound on every collective and rank
+
+
+def digest(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def rank_counters():
+    """This process's K1 launches and tp all-reduces to 0."""
+    from fermi_tpu_torch.dist import sharded as sh
+
+    reset_launches()
+    sh.STATS.update(all_reduce=0, all_reduce_s=0.0)
+
+
+def reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def rank_line(dev, t0, k1):
+    """A rank's seconds, K1 launches, all-reduces and device peak."""
+    from fermi_tpu_torch.dist import sharded as sh
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+    n = sh.STATS["all_reduce"]
+    return dict(seconds=time.perf_counter() - t0, k1_launches=k1,
+                all_reduce=n,
+                ms_per_all_reduce=(sh.STATS["all_reduce_s"] / n * 1e3
+                                   if n else None),
+                device_peak_gb=(torch.cuda.max_memory_allocated(dev) / 2**30
+                                if on_card else 0.0))
+
+
+def dist_rank(rank, world, init_method, device, fmd, queries, parts):
+    """One of the two ranks of [dist] (a) and (c), both on `device` (the
+    one card: over gloo): (a) tp=2, the whole .fmd restored on the host,
+    the rank's half of the rank rows on the card, ShardedSMEM of the
+    queries; (c) dp=2, fm_merge_sharded of two parts restored on the
+    card."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.dist import sharded as sh
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import smem as sm
+
+    dev = sh.init_ranks(rank, world, init_method, device, DIST_TIMEOUT_S)
+    out = {}
+    rank_counters()
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    index = FMDIndex.restore(fmd, "cpu")
+    restore_s = time.perf_counter() - t0
+    eng = sh.ShardedSMEM(index, sh.make_mesh(dp=1, tp=2, device=dev))
+    t1 = time.perf_counter()
+    smems = eng.smem_all(queries)
+    out["smem"] = dict(
+        backend=eng.mesh.backend, host_restore_s=restore_s,
+        smem_s=time.perf_counter() - t1, redo_reads=sm.STATS["redo"],
+        shard_rows=eng.view.packed_l.shape[0],
+        **rank_line(dev, t0, launches()["rank6_fused"]))
+    del eng, index
+    rank_counters()
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    mesh = sh.make_mesh(dp=2, tp=1, device=dev)
+    bwts = [rld.read_fmd(p).expand() for p in parts]
+    e0, e1 = (FMDIndex.from_bwt(b, dev) for b in bwts)
+    t1 = time.perf_counter()
+    merged = sh.fm_merge_sharded(e0, bwts[0], e1, bwts[1], mesh)
+    out["merge"] = dict(backend=mesh.backend,
+                        merge_s=time.perf_counter() - t1,
+                        **rank_line(dev, t0, launches()["rank6_fused"]))
+    out["smem_result"] = smems if rank == 0 else None
+    out["merge_digest"] = digest(merged)
+    out["all_reduce_step_ms"] = all_reduce_ms(dev, mesh.group)
+    return out
+
+
+def all_reduce_ms(dev, group, reps=10):
+    """ms of one all-reduce of a loop step's rank partials (2,048 lanes x
+    64 keys x 6 int32) over `group`: on tensors on `dev` (what the tp view
+    does) and on host tensors."""
+    import torch.distributed as tdist
+
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        x = torch.ones((LANES_STEP * 64, 6), dtype=torch.int32, device=where)
+        tdist.all_reduce(x, group=group)
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tdist.all_reduce(x, group=group)
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+        out[where.type] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def dist_phase(rng, workdir, fmd, q_fa, dev):
+    """The dp×tp layer on the card at the cell's size: (a) two ranks on
+    cuda:0 over gloo, the 281 Msym index split tp=2, ShardedSMEM of the
+    first N_DIST_QUERIES `exact` queries, equal to the single-process
+    port's smem_all; (b) the same queries through a world of one over
+    NCCL; (c) dp=2, fm_merge_sharded of two of the four parts of
+    merge_phase (chosen by rng), byte-equal to the port's fm_merge; (d)
+    dryrun_multichip(4) on the card.  Every rank must launch K1.  Returns
+    the K1 launches of every rank."""
+    import torch.distributed as tdist
+
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.dist import sharded as sh
+    from fermi_tpu_torch.dist.launch import spawn_ranks
+    from fermi_tpu_torch.graft_entry import dryrun_multichip
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import smem as sm
+
+    t_phase = time.perf_counter()
+    queries = exact_batch(q_fa, lo=0, n=N_DIST_QUERIES)
+    parts = [os.path.join(workdir, f"part{i}.fmd")
+             for i in sorted(rng.choice(4, 2, replace=False))]
+    # the single-process port, and (b) a world of one over NCCL
+    gidx = FMDIndex.restore(fmd, dev)
+    t0 = time.perf_counter()
+    want = sm.smem_all(gidx, queries)
+    single_s = rank_line(dev, t0, 0)["seconds"]
+    rank_counters()
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    sh.init_ranks(0, 1, "file://" + os.path.join(workdir, "nccl_init"),
+                  str(dev), DIST_TIMEOUT_S)
+    try:
+        mesh = sh.make_mesh(device=dev)
+        got1 = sh.ShardedSMEM(gidx, mesh).smem_all(queries)
+        nccl = dict(backend=mesh.backend,
+                    **rank_line(dev, t0, launches()["rank6_fused"]))
+    finally:
+        tdist.destroy_process_group()
+    del gidx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if got1 != want:
+        raise AssertionError("ShardedSMEM over NCCL (world 1) != smem_all")
+    # (a) and (c): two ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dist_rank, 2, (str(dev), fmd, queries, parts),
+                        DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    bwts = [rld.read_fmd(p).expand() for p in parts]
+    e0, e1 = (FMDIndex.from_bwt(b, dev) for b in bwts)
+    t0 = time.perf_counter()
+    merged = mg.fm_merge(e0, bwts[0], e1, bwts[1])
+    merge_single_s = rank_line(dev, t0, 0)["seconds"]
+    del e0, e1
+    # (d)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=dev)
+    dry_s = time.perf_counter() - t0
+    k1 = ([nccl["k1_launches"]]
+          + [r[p]["k1_launches"] for r in ranks for p in ("smem", "merge")]
+          + [r["k1_launches"] for r in dry])
+    smem_ok = ranks[0]["smem_result"] == want
+    merge_ok = all(r["merge_digest"] == digest(merged) for r in ranks)
+    for r in ranks:
+        r.pop("smem_result")
+    log("dist", queries=len(queries), parts=parts, smems=sum(map(len, want)),
+        single_smem_s=single_s, nccl_world1=nccl,
+        tp2_smem=[r["smem"] for r in ranks],
+        dp2_merge=[r["merge"] for r in ranks], spawn_and_ranks_s=ranks_s,
+        all_reduce_step_ms=[r["all_reduce_step_ms"] for r in ranks],
+        merge_msym=len(merged) / 1e6, single_merge_s=merge_single_s,
+        dryrun4=dry, dryrun4_s=dry_s, smem_equal=smem_ok,
+        merge_equal=merge_ok, phase_seconds=time.perf_counter() - t_phase)
+    if not (smem_ok and merge_ok):
+        raise AssertionError(f"sharded SMEM equal {smem_ok}, sharded merge "
+                             f"equal {merge_ok}")
+    if dev.type == "cuda" and min(k1) < 1:
+        raise AssertionError(f"a rank launched no K1: {k1}")
+    return sum(k1)
+
+
+def ropebwt_phase(workdir, win_fq, dev):
+    """`ropebwt -a bpr|bcr|sais` of the CROSS_WINDOW reads, text and -b, on
+    `dev` (bpr is host code): the three engines' outputs equal in each
+    format, and the device engines' -b equal to theirs on the CPU."""
+    t_phase = time.perf_counter()
+    outs, secs = {}, {}
+    for algo in ("bpr", "bcr", "sais"):
+        for fmt in ("text", "rle6"):
+            o = os.path.join(workdir, f"rope_{algo}_{fmt}")
+            secs[f"{algo}_{fmt}"] = run_cli(
+                ["ropebwt", "-a", algo, "--device", str(dev),
+                 *(["-b"] if fmt == "rle6" else []), "-o", o, win_fq])[0]
+            with open(o, "rb") as f:
+                outs[algo, fmt] = f.read()
+    for algo in ("bcr", "sais"):
+        o = os.path.join(workdir, f"rope_{algo}_cpu")
+        secs[f"{algo}_rle6_cpu"] = run_cli(
+            ["ropebwt", "-a", algo, "--device", "cpu", "-b", "-o", o,
+             win_fq])[0]
+        with open(o, "rb") as f:
+            outs[algo, "cpu"] = f.read()
+    same = {fmt: len({outs[a, fmt] for a in ("bpr", "bcr", "sais")}) == 1
+            for fmt in ("text", "rle6")}
+    same["cpu"] = all(outs[a, "cpu"] == outs["bpr", "rle6"]
+                      for a in ("bcr", "sais"))
+    log("ropebwt", window_bp=CROSS_WINDOW,
+        msym=(len(outs["bpr", "text"]) - 1) / 1e6,
+        rle6_bytes=len(outs["bpr", "rle6"]), seconds=secs, equal=same,
+        phase_seconds=time.perf_counter() - t_phase)
+    if not all(same.values()):
+        raise AssertionError(f"ropebwt engines differ: {same}")
+
+
 def ptxas_report(jobs):
     """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
     flags, output discarded); returns a function that waits and gives, per
@@ -2201,7 +2437,8 @@ def main():
                       native.sw_job()])
     for get in (native.get_lib, native.get_ec_lib, native.get_unitig_lib,
                 native.get_frags_lib, native.get_sequtil_lib,
-                native.get_smem_lib, native.get_remap_lib):
+                native.get_smem_lib, native.get_remap_lib,
+                native.get_bprope_lib):
         get()
     rank_cuda.get_lib()
     sw_cuda.get_lib()
@@ -2257,10 +2494,14 @@ def main():
         con = contrast_phase(rng, workdir, res, dev)
         setops.append(con["k1_launches"])
         cross_check_setops(workdir, res, con, dev)
+        # slice 8, from a stream of its own
+        k1_dist = dist_phase(np.random.default_rng(args.seed + 4), workdir,
+                             res["fmd"], res["q_fa"], dev)
+        ropebwt_phase(workdir, ec_res["win_fq"], dev)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"] + ut["k1_launches"]
                    + run["k1_launches"] + k1_chkbwt + sum(setops)
-                   + k1_paired + k1_example)
+                   + k1_paired + k1_example + k1_dist)
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

@@ -31,12 +31,15 @@ STATS = {"steps": 0, "lanes": 0, "batch": 0, "chunk_steps": 0,
          "seconds": 0.0}
 
 
-def _gap_walk_chunk(e1: FMDIndex, e0: FMDIndex, k, i, done, bits,
-                    steps: int):
-    """Advance all lanes by `steps` LF steps, marking k + i + 1 (int64) in
-    bits; inactive lanes mark the spare last slot."""
-    spare = bits.numel() - 1
-    for _ in range(steps):
+def _gap_walk_chunk(e1, e0, k, i, done, steps: int):
+    """Advance all lanes by `steps` LF steps.  Returns (k, i, done, pos):
+    pos int64 [steps, lanes] holds the merged position k + i + 1 each
+    active lane marks at each step, -1 where a lane is inactive.  e1 and
+    e0 are FMDIndex objects or anything with their lf / rank6 / cnt (the
+    tp-sharded views of dist/sharded.py)."""
+    pos = torch.full((steps, k.numel()), -1, dtype=torch.int64,
+                     device=k.device)
+    for s in range(steps):
         c, kp = e1.lf(k)
         ci = c.long()
         r0 = e0.rank6(i + 1)
@@ -45,10 +48,10 @@ def _gap_walk_chunk(e1: FMDIndex, e0: FMDIndex, k, i, done, bits,
         active = ~done & ~hit_end
         k = torch.where(active, kp, k)
         i = torch.where(active, ip, i)
-        bits[torch.where(active, k.long() + i.long() + 1, spare)] = True
+        pos[s] = torch.where(active, k.long() + i.long() + 1, -1)
         done = done | hit_end
     STATS["steps"] += steps
-    return k, i, done
+    return k, i, done, pos
 
 
 def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = 1 << 20,
@@ -60,6 +63,7 @@ def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = 1 << 20,
     n0, n1 = e0.total, e1.total
     STATS.update(steps=0, lanes=e1.n_seqs, batch=batch,
                  chunk_steps=chunk_steps)
+    spare = n0 + n1
     bits = torch.zeros(n0 + n1 + 1, dtype=torch.bool, device=dev)
     for lo in range(0, e1.n_seqs, batch):
         k = torch.arange(lo, min(lo + batch, e1.n_seqs), dtype=e1.idtype,
@@ -69,8 +73,9 @@ def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = 1 << 20,
         # the first mark (merge.c:42) comes before any step
         bits[k.long() + i.long() + 1] = True
         while True:
-            k, i, done = _gap_walk_chunk(e1, e0, k, i, done, bits,
-                                         chunk_steps)
+            k, i, done, pos = _gap_walk_chunk(e1, e0, k, i, done,
+                                              chunk_steps)
+            bits[torch.where(pos >= 0, pos, spare)] = True
             live = ~done
             if not bool(live.any()):
                 break

@@ -1,14 +1,14 @@
 """fermi-compatible command line of the port: build (and build -i),
 unpack, exact, chkbwt, correct, seqsort/seqrank, unitig, clean, merge, sub,
 contrast, bitand, recode, remap, scaf, example, the sequence tools
-(splitfa, fltuniq, trimseq, pe2cofq, cg2cofq, cnt2qual), and run (the
-pipeline, unpaired or paired with -P).
+(splitfa, fltuniq, trimseq, pe2cofq, cg2cofq, cnt2qual), run (the
+pipeline, unpaired or paired with -P) and ropebwt.
 
 The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
 mirrors reference main.c.  Each subcommand that queries or builds an index
 runs on CUDA unless `--device cpu` (or another device) is given; `clean`,
-`bitand`, `recode`, `remap` and the sequence tools are host code, as in
-fermi_tpu.
+`bitand`, `recode`, `remap`, the sequence tools and `ropebwt -a bpr` are
+host code, as in fermi_tpu.
 """
 
 import argparse
@@ -676,6 +676,108 @@ def cmd_run(args):
     return 0
 
 
+def _add_ropebwt(sub):
+    p = sub.add_parser("ropebwt", help="alternative FM-index construction")
+    p.add_argument("-a", dest="algo", default="bpr",
+                   choices=["bpr", "bcr", "sais"])
+    p.add_argument("-b", dest="binary", action="store_true",
+                   help="binary RLE6 output")
+    p.add_argument("-N", dest="cut_n", action="store_true")
+    p.add_argument("-O", dest="no_trim_pal", action="store_true")
+    p.add_argument("-F", dest="no_fwd", action="store_true")
+    p.add_argument("-R", dest="no_rev", action="store_true")
+    # accepted for the reference's command lines; nothing to tune here
+    p.add_argument("-t", dest="threaded", action="store_true")
+    p.add_argument("-o", dest="out", default="-")
+    p.add_argument("-f", dest="tmpfn", default=None)
+    p.add_argument("-v", dest="verbose", type=int, default=1)
+    p.add_argument("-r", dest="max_runs", type=int, default=512)
+    p.add_argument("-n", dest="max_nodes", type=int, default=64)
+    _device_arg(p)
+    p.add_argument("fastx")
+    p.set_defaults(func=cmd_ropebwt)
+
+
+def _ropebwt_frags(path, cut_n=False, trim_pal=True, fwd=True, rev=True):
+    """The strands `ropebwt` indexes, in order: each read (split at N with
+    cut_n), its palindromes 1 bp trimmed when both strands go in, forward
+    then reverse complement."""
+    from fermi_tpu_torch.core import dna, fastx
+
+    frags = []
+    for rec in fastx.read_fastx(path):
+        s = dna.encode(rec.seq)
+        if cut_n:
+            parts = [p[p != 5] for p in np.split(s, np.flatnonzero(s == 5))]
+            parts = [p for p in parts if len(p)]
+        else:
+            # the reference's BCR randomizes ambiguous bases; N is kept
+            parts = [s]
+        for part in parts:
+            if trim_pal and rev and fwd and dna.is_revcomp_palindrome(part):
+                part = part[:-1]
+            if fwd:
+                frags.append(part)
+            if rev:
+                frags.append(dna.revcomp(part))
+    return frags
+
+
+def _rle6_bytes(runs) -> bytes:
+    """`ropebwt -b`'s stream: "RLE\x06", then a byte (len << 3 | sym) per
+    run of at most 31 symbols, longer runs cut into 31s first."""
+    ln = np.asarray(runs.lengths, np.int64)
+    sy = np.asarray(runs.symbols, np.int64)
+    full = (ln - 1) // 31
+    body = np.repeat(31 << 3 | sy, full + 1)
+    ends = np.cumsum(full + 1) - 1
+    body[ends] = (ln - 31 * full) << 3 | sy
+    return b"RLE\x06" + body.astype(np.uint8).tobytes()
+
+
+def cmd_ropebwt(args):
+    """The multi-string BWT of the reads' strands by one of three
+    interchangeable builders, which must agree bit for bit
+    (fermi.1:581-628): the host rope (bpr), BCR on the device (bcr) and
+    prefix doubling on the device (sais)."""
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.core import dna
+
+    device = None if args.algo == "bpr" else resolve_device(args.device)
+    frags = _ropebwt_frags(args.fastx, args.cut_n, not args.no_trim_pal,
+                          not args.no_fwd, not args.no_rev)
+    if args.algo == "bpr":
+        from fermi_tpu_torch.construct.bprope import bpr_bwt
+        bwt = bpr_bwt(frags)
+    elif args.algo == "bcr":
+        from fermi_tpu_torch.construct.bcr_device import bcr_bwt_device
+        bwt = bcr_bwt_device(frags, device)
+    else:
+        from fermi_tpu_torch.construct import suffix
+        from fermi_tpu_torch.construct.suffix_device import (
+            multistring_bwt_device)
+        bwt = multistring_bwt_device(
+            suffix.build_text(frags, both_strands=False,
+                              trim_palindrome=False), device)
+    runs = rld.Runs.from_bwt(bwt)
+    if args.binary:
+        data = _rle6_bytes(runs)
+        if args.out == "-":
+            sys.stdout.buffer.write(data)
+            sys.stdout.buffer.flush()
+        else:
+            with open(args.out, "wb") as f:
+                f.write(data)
+    else:
+        txt = dna.decode(runs.expand()) + "\n"
+        if args.out == "-":
+            sys.stdout.write(txt)
+        else:
+            with open(args.out, "w") as f:
+                f.write(txt)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fermi-tpu-torch",
@@ -686,7 +788,7 @@ def main(argv=None):
                 _add_correct, _add_seqsort, _add_unitig, _add_clean,
                 _add_merge, _add_sub, _add_contrast, _add_bitand, _add_recode,
                 _add_remap, _add_scaf, _add_sequtils, _add_example,
-                _add_run):
+                _add_run, _add_ropebwt):
         add(sub)
     args = ap.parse_args(argv)
     ret = args.func(args)

@@ -38,3 +38,11 @@ def comp(nt6: np.ndarray) -> np.ndarray:
 
 def revcomp(nt6: np.ndarray) -> np.ndarray:
     return comp(np.asarray(nt6)[::-1])
+
+
+def is_revcomp_palindrome(nt6: np.ndarray) -> bool:
+    """True iff the sequence equals its own reverse complement (even length)."""
+    s = np.asarray(nt6)
+    if len(s) % 2:
+        return False
+    return bool(np.all(s + s[::-1] == 5))

@@ -7,8 +7,9 @@ fermi_tpu_torch/build/ at first use (the directory is not committed):
     engine (native/ec.cpp), the unitig stitch (native/unitig.cpp with
     native/fmindex.h), the read encoders (native/frags.cpp), the fltuniq
     filter (native/sequtil.cpp), the long-query SMEM engine
-    (native/smem.cpp with native/fmindex.h) and remap's paircov
-    (native/remap.cpp), plain g++, no torch headers;
+    (native/smem.cpp with native/fmindex.h), remap's paircov
+    (native/remap.cpp) and the B+-rope BWT builder behind `ropebwt -a bpr`
+    (native/bprope.cpp), plain g++, no torch headers;
   * the CUDA kernels (csrc/rank.cu, csrc/sw.cu), nvcc for sm_90a, plain C
     interface (ops/rank_cuda.py and ops/sw_cuda.py launch them).
 
@@ -129,10 +130,14 @@ def remap_job() -> Job:
     return _gxx_job("fremap", "remap.cpp")
 
 
+def bprope_job() -> Job:
+    return _gxx_job("fbprope", "bprope.cpp")
+
+
 def host_jobs() -> list:
     """Every g++ library of the port."""
     return [codec_job(), ec_job(), unitig_job(), frags_job(), sequtil_job(),
-            smem_job(), remap_job()]
+            smem_job(), remap_job(), bprope_job()]
 
 
 def rank_job() -> Job:
@@ -211,6 +216,10 @@ _SIGNATURES = {
         "fpaircov_stats": (None, [_P, _P]),
         "fpaircov_destroy": (None, [_P]),
     },
+    "fbprope": {
+        # fbpr_build(seqs u8*, offsets i64*, n_reads, out u8*) -> length
+        "fbpr_build": (_I64, [_P, _P, _I64, _P]),
+    },
     # the kernels' entries return the cudaError_t of their launch
     "rank_k1": {
         # k1_rank_block_counts(words, off, out, n, stream)
@@ -283,3 +292,8 @@ def get_smem_lib() -> ctypes.CDLL:
 def get_remap_lib() -> ctypes.CDLL:
     """remap's paircov engine (native/remap.cpp), built on first use."""
     return load(remap_job)
+
+
+def get_bprope_lib() -> ctypes.CDLL:
+    """The B+-rope BWT builder (native/bprope.cpp), built on first use."""
+    return load(bprope_job)

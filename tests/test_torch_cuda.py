@@ -563,3 +563,103 @@ def test_run_paired_card_vs_cpu(card, tmp_path, monkeypatch):
             assert a.read() == b.read(), sfx
     with gzip.open(tmp_path / "cuda.p4.fa.gz", "rb") as f:
         assert f.read().count(b">") >= 1
+
+
+def _smem_rank(rank, world, init_method, device, tp, bwt, queries):
+    """One rank of the sharded SMEM card tests: its backend, the SMEMs and
+    the K1 launches of its shard."""
+    from fermi_tpu_torch.dist import sharded as sh
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    dev = sh.init_ranks(rank, world, init_method, device, timeout_s=120)
+    mesh = sh.make_mesh(tp=tp, device=dev)
+    eng = sh.ShardedSMEM(FMDIndex.from_bwt(bwt, "cpu"), mesh)
+    before = rank_cuda.LAUNCHES["rank6_fused"]
+    got = eng.smem_all(queries)
+    out = dict(backend=mesh.backend, smem=got,
+               k1=rank_cuda.LAUNCHES["rank6_fused"] - before,
+               all_reduce=sh.STATS["all_reduce"])
+    if mesh.backend == "gloo":
+        out["collectives"] = _gloo_cuda_collectives(dev, world, rank)
+    return out
+
+
+def _gloo_cuda_collectives(dev, world, rank):
+    """The collectives gloo runs on CUDA tensors, each checked: all_reduce,
+    broadcast and all_gather in four dtypes, all_gather_into_tensor,
+    all_to_all_single and reduce_scatter_tensor."""
+    import torch.distributed as dist
+
+    ok = []
+    for dt in (torch.int64, torch.int32, torch.uint8, torch.bool):
+        x = torch.full((8,), rank + 1, device=dev).to(dt)
+        y = x.clone()
+        dist.all_reduce(y)
+        b = x.clone()
+        dist.broadcast(b, 1)
+        g = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(g, x)
+        want = torch.full((8,), world * (world + 1) // 2).to(dt)
+        ok.append(torch.equal(y.cpu(), want.to(dt))
+                  and torch.equal(b.cpu(), torch.full((8,), 2).to(dt))
+                  and [int(t[0]) for t in g] == [
+                      int(torch.tensor(r + 1).to(dt)) for r in range(world)])
+    x = torch.arange(4 * world, device=dev) + 100 * rank
+    g = torch.empty(4 * world * world, dtype=x.dtype, device=dev)
+    dist.all_gather_into_tensor(g, x)
+    a = torch.empty_like(x)
+    dist.all_to_all_single(a, x)
+    r = torch.empty(4, dtype=x.dtype, device=dev)
+    dist.reduce_scatter_tensor(r, x)
+    torch.cuda.synchronize(dev)
+    ok.append(g.cpu().tolist() == [v + 100 * q for q in range(world)
+                                   for v in range(4 * world)])
+    ok.append(a.cpu().tolist() == [4 * rank + v + 100 * q
+                                   for q in range(world) for v in range(4)])
+    ok.append(r.cpu().tolist() == [sum(4 * rank + v + 100 * q
+                                       for q in range(world))
+                                   for v in range(4)])
+    return ok
+
+
+@pytest.mark.parametrize("world,device,backend", [(2, "cuda:0", "gloo"),
+                                                  (1, "cuda", "nccl")])
+def test_sharded_smem_ranks_on_card(pair, world, device, backend):
+    """Two ranks sharing card 0 over gloo (tp=2), and a world of one over
+    NCCL: the sharded SMEMs equal the single-process port's, and K1 ran on
+    every rank's shard.  The gloo ranks also check the collectives gloo
+    runs on CUDA tensors."""
+    from fermi_tpu_torch.dist.launch import spawn_ranks
+
+    _, gidx, _ = pair
+    qry = [dna.encode(s) for s in
+           random_reads(80, seed=6, with_genome=True, genome_len=4000)]
+    bwt = gidx.bwt().cpu().numpy()
+    res = spawn_ranks(_smem_rank, world, (device, world, bwt, qry), 300)
+    want = smem.smem_all(gidx, qry)
+    for r in res:
+        assert r["backend"] == backend
+        assert r["smem"] == want
+        assert r["k1"] > 0
+        assert (r["all_reduce"] > 0) == (world > 1)
+        if backend == "gloo":
+            assert all(r["collectives"]), r["collectives"]
+
+
+def test_ropebwt_card_vs_cpu(card, tmp_path):
+    from fermi_tpu_torch.cli.main import main
+
+    reads = random_reads(300, seed=4, with_genome=True, genome_len=3000)
+    fa = tmp_path / "r.fa"
+    write_fasta(str(fa), reads)
+    outs = {}
+    for algo in ("bpr", "bcr", "sais"):
+        for dev in ("cuda", "cpu"):
+            for b in ([], ["-b"]):
+                o = tmp_path / f"{algo}{dev}{len(b)}"
+                assert main(["ropebwt", "-a", algo, "--device", dev, *b,
+                             "-o", str(o), str(fa)]) == 0
+                outs[algo, dev, len(b)] = o.read_bytes()
+    for b in (0, 1):
+        assert len({outs[a, d, b] for a in ("bpr", "bcr", "sais")
+                    for d in ("cuda", "cpu")}) == 1

@@ -36,6 +36,10 @@ def _imported(path):
 def test_no_jax_or_fermi_tpu_imports():
     srcs = list(_sources())
     assert len(srcs) > 15
+    rel = {os.path.relpath(p, ROOT) for p in srcs}
+    for f in ("dist/sharded.py", "dist/launch.py", "misc/evaltools.py",
+              "graft_entry.py"):
+        assert os.path.join("fermi_tpu_torch", f) in rel
     bad = [(os.path.relpath(p, ROOT), m) for p in srcs for m in _imported(p)
            if m.split(".")[0] in ("jax", "jaxlib", "fermi_tpu")]
     assert bad == []
@@ -56,6 +60,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch.construct.blocked import device_build_text
     from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
     from fermi_tpu_torch.construct.wsort import wsort_bwt
+    from fermi_tpu_torch.graft_entry import dryrun_multichip, entry
     from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.ops.sw_cuda import sw_score_batch
     from fermi_tpu_torch.pipeline.driver import Pipeline
@@ -111,7 +116,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                            "20"]),
              lambda: main(["example", str(fa)]),
              lambda: main(["example", "-e", "-U", str(fa)]),
-             lambda: api.unitig(["ACGT"])]
+             lambda: api.unitig(["ACGT"]),
+             lambda: main(["ropebwt", "-a", "bcr", str(fa)]),
+             lambda: main(["ropebwt", "-a", "sais", "-b", str(fa)]),
+             lambda: dryrun_multichip(2),
+             lambda: entry()]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -122,9 +131,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_host_commands_run_without_cuda(no_cuda, tmp_path, capfdbinary):
-    """clean, bitand, recode, remap and fltuniq are host code: they take no
-    device and run with no CUDA present (remap restores its index on the
-    CPU and takes the contigs' SMEMs from the native engine)."""
+    """clean, bitand, recode, remap, fltuniq and `ropebwt -a bpr` are host
+    code: they take no device and run with no CUDA present (remap restores
+    its index on the CPU and takes the contigs' SMEMs from the native
+    engine)."""
     from fermi_tpu_torch import rld
     from fermi_tpu_torch.cli.main import main
     from fermi_tpu_torch.construct import suffix
@@ -146,6 +156,7 @@ def test_host_commands_run_without_cuda(no_cuda, tmp_path, capfdbinary):
     assert main(["fltuniq", "-k", "15", str(fq)]) == 0
     assert main(["remap", fmd, str(contigs)]) == 0
     assert main(["recode", fmd]) == 0
+    assert main(["ropebwt", "-a", "bpr", str(fq)]) == 0
     out = capfdbinary.readouterr()
     assert 100 < out.out.count(b"@r") <= len(reads) and b"\n@c\n" in out.out
     assert b"[M::remap] avg" in out.err
