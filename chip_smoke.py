@@ -88,7 +88,19 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   peak and backend;
 - `ropebwt -a bpr|bcr|sais` of the 25 kbp window's reads, text and `-b`:
   the six outputs equal in each format, and the device engines' `-b`
-  equal to theirs on the CPU.
+  equal to theirs on the CPU;
+- `-M`, out of core on the host, over the files above, each call held to
+  launch no kernel and allocate nothing on the card: the .fmd.blk record
+  cache of the 281 Msym index (seconds, size); `exact -M` of the first
+  4,096 queries equal to the card's `exact` of them, with reads/s and each
+  call's peak RSS in a child process; `unpack -M` of the 1,000 ids;
+  `seqsort -M -t 8` of the corrected index equal to its .rank; `correct -M
+  -t 8` of the fix rerun's reads equal to the card's; `unitig -M -t 1 -l
+  50 -r` of the window equal to the card's, and `-t 8` of the corrected
+  index under the reference's threaded contract against the card's p0;
+  `chkbwt -M -r` of the index and of a corrupted copy; `remap -M -r` of
+  the pairs window equal to `remap`; `fm_append_streaming` of the fourth
+  part onto the merge of three, equal to `build` of all the reads.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -519,7 +531,8 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
         raise AssertionError("a query phase did not launch K1 on the card")
     return dict(fmd=fmd, q_fa=q_fa, exact_text=exact_text, genome=genome,
                 reads_fa=reads_fa, reads=reads, pos=pos, t_build=t_build,
-                launches=counts, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI)
+                launches=counts, maxi=sm.STATS["maxi"] or sm.DEFAULT_MAXI,
+                unpack_ids=ids, unpack_text=text)
 
 
 def cross_check(fmd, q_fa, exact_text, dev, n=N_CROSS_CPU):
@@ -1111,7 +1124,8 @@ def correct_phase(rng, workdir, dev, genome, n_reads, n_sub=N_FIX_SUB):
         raise AssertionError("device fix output differs from host fix output")
     log("correct_fix_equal", reads=n_sub, bytes=len(outs["0"]), equal=True)
     return dict(fq=fq, ec_fq=ec_fq, win_fq=win_fq, run_fq=run_fq,
-                k1_launches=k1)
+                k1_launches=k1, fmd=fmd, sub_fq=sub_fq,
+                sub_out=os.path.join(workdir, "sub0.fq"))
 
 
 def seqsort_phase(workdir, ec_fq, dev):
@@ -1136,7 +1150,7 @@ def seqsort_phase(workdir, ec_fq, dev):
         raise AssertionError("seqsort: the .rank array is not a permutation")
     log("seqsort", seqs=n_seqs, build_seconds=t_build, seconds=t,
         k1_launches=k1, permutation=True)
-    return dict(fmd=fmd, k1_launches=k1)
+    return dict(fmd=fmd, k1_launches=k1, rank=rank)
 
 
 def decompressed(path):
@@ -1255,7 +1269,7 @@ def unitig_phase(workdir, fmd, genome, dev, min_match=50):
            for k, v in assembly_stats(seqs).items()},
         p0_exact_share=share["p0"], p2_exact_share=share["p2"],
         check_seconds=time.perf_counter() - t0)
-    return dict(k1_launches=k1)
+    return dict(k1_launches=k1, p0=p0)
 
 
 def profile_unitig(fmd, dev, n=1 << 16, min_match=50):
@@ -1391,6 +1405,7 @@ def cross_check_unitig(workdir, fmd, rank, dev, min_match=50):
         ladder_rows=st["ladder_rows"], redo_left=st["redo_left"],
         unitig_equal=True, clean_equal=True, device_seconds=t_dev,
         cpu_seconds=t_cpu)
+    return texts["dev", True]
 
 
 def nt6_text(asc):
@@ -1945,6 +1960,7 @@ def remap_pairs_phase(rng, workdir, genome, dev, window=PAIRS_WINDOW,
         insert_sd_drawn=float(ins.std()), avg=avg, std=std, cap=cap,
         within_2pct=True, seconds=t, unpaired_lists=text.count("UR:Z:"),
         broken_seconds=t_c, broken_pieces=pieces)
+    return dict(fmd=fmd, rank=rank, ctg=ctg, text=text)
 
 
 # slice 7: the paired chain on genome P
@@ -2387,6 +2403,221 @@ def ropebwt_phase(workdir, win_fq, dev):
         raise AssertionError(f"ropebwt engines differ: {same}")
 
 
+# slice 9: `-M`, out of core on the host
+N_OOC_QUERIES = 4096            # `exact` queries searched with and without -M
+OOC_THREADS = 8                 # -t of ensure_blk, seqsort, correct, unitig
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The child samples its own resident set (/proc/self/statm) every 5 ms:
+# ru_maxrss would carry the parent's peak over the fork and exec, and not
+# every /proc has VmHWM.  The baseline child only imports the CLI.
+RSS_CHILD = """
+import os, sys, threading, time
+from fermi_tpu_torch.cli.main import main
+peak = [-1]
+def sample():
+    page = os.sysconf("SC_PAGE_SIZE")
+    while True:
+        try:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+        except OSError:
+            return
+        time.sleep(0.005)
+threading.Thread(target=sample, daemon=True).start()
+time.sleep(0.02)
+rc = 0
+if sys.argv[1] != "-":
+    with open(sys.argv[1], "w") as out:
+        sys.stdout = out
+        rc = main(sys.argv[2:])
+        out.flush()
+time.sleep(0.02)
+sys.stderr.write("peak_rss_kib %d\\n" % (peak[0] >> 10))
+sys.exit(rc)
+"""
+
+
+def child_maxrss(argv, out_path):
+    """One CLI call (none with out_path "-") in a child process of its
+    own: (seconds, its peak resident set in KiB or a negative number when
+    /proc cannot tell, its stdout)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", RSS_CHILD, out_path, *argv],
+                       capture_output=True, text=True, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    t = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise RuntimeError(f"child {' '.join(argv)} exited {p.returncode}: "
+                           f"{p.stderr[-500:]}")
+    rss = int(re.search(r"peak_rss_kib (-?\d+)", p.stderr).group(1))
+    if out_path == "-":
+        return t, rss, None
+    with open(out_path) as f:
+        return t, rss, f.read()
+
+
+def host_only(name, fn):
+    """fn() must run on the host alone: no kernel launched, nothing
+    allocated on the card.  Returns fn()'s result and its seconds."""
+    reset_launches()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    t = time.perf_counter() - t0
+    used = torch.cuda.max_memory_allocated() - before
+    if any(launches().values()) or used > 0:
+        raise AssertionError(f"{name} touched the card: {launches()}, "
+                             f"{used} bytes")
+    return out, t
+
+
+def mag_ends_mass(path):
+    """The unitig end ids and the total bp of a MAG file."""
+    lines = decompressed(path).split(b"\n")
+    ends = [x for i in range(0, len(lines) - 1, 4)
+            if lines[i].startswith(b"@")
+            for x in lines[i][1:].split(b"\t")[0].split(b":")]
+    return ends, sum(len(x) for x in mag_seqs(path))
+
+
+def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
+    """`-M` on the host, over the files of the earlier phases, each call
+    held to launch no kernel and allocate nothing on the card: the record
+    cache of the 281 Msym index; `exact -M` of the first N_OOC_QUERIES
+    queries equal to the card's `exact` of them, with each call's peak RSS
+    in a child process; `unpack -M` of [unpack]'s ids; `seqsort -M`,
+    `correct -M` of the fix rerun's reads and `unitig -M -r` (one thread on
+    the window, OOC_THREADS on the corrected index under the threaded
+    contract against [unitig]'s p0); `chkbwt -M -r` of the index and of a
+    corrupted copy; `remap -M -r` of the pairs window; fm_append_streaming
+    of the last part onto the merge of the others, equal to `build` of all
+    the reads."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos.merge import fm_append_streaming
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.construct import suffix
+    from fermi_tpu_torch.core import dna, fastx
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.index.mmapfmd import MmapIndex
+
+    t_phase = time.perf_counter()
+    fmd, t_ = res["fmd"], str(OOC_THREADS)
+    out, secs, eq = {}, {}, {}
+    n_sym = MmapIndex(fmd).total
+    blk, secs["ensure_blk"] = host_only(
+        "ensure_blk", lambda: ensure_blk(fmd, n_threads=OOC_THREADS))
+    size = os.path.getsize(blk.path)
+    if blk.total != n_sym or size != 4096 + 192 * blk.n_rows:
+        raise AssertionError(f"record cache: {blk.total} symbols, {size} B")
+    out.update(blk_rows=blk.n_rows, blk_gb=size / 1e9, blk_wide=blk.wide)
+
+    # exact: the card's and -M's bytes, reads/s and each call's peak RSS
+    q_fa = os.path.join(workdir, "q_ooc.fa")
+    with open(res["q_fa"]) as f, open(q_fa, "w") as g:
+        g.writelines(f.readlines()[: 2 * N_OOC_QUERIES])
+    secs["exact_card"], card, _ = run_cli(["exact", "--device", str(dev),
+                                           fmd, q_fa])
+    (secs["exact_M"], text, _), _ = host_only(
+        "exact -M", lambda: run_cli(["exact", "-M", fmd, q_fa]))
+    eq["exact"] = text == card and text.count("SQ\t") == N_OOC_QUERIES
+    rss = {"import": child_maxrss([], "-")[1]}
+    for key, argv in (("M", ["exact", "-M", fmd, q_fa]),
+                      ("card", ["exact", "--device", str(dev), fmd, q_fa])):
+        secs[f"exact_{key}_child"], rss[key], child_text = child_maxrss(
+            argv, os.path.join(workdir, f"exact_{key}.txt"))
+        eq[f"exact_{key}_child"] = child_text == card
+    out.update(exact_reads_per_s_card=N_OOC_QUERIES / secs["exact_card"],
+               exact_reads_per_s_M=N_OOC_QUERIES / secs["exact_M"],
+               **{f"peak_rss_gib_{k}": v / 2**20 for k, v in rss.items()})
+
+    # unpack of [unpack]'s ids
+    ids = [a for x in res["unpack_ids"] for a in ("-i", str(x))]
+    (secs["unpack_M"], text, _), _ = host_only(
+        "unpack -M", lambda: run_cli(["unpack", "-M", *ids, fmd]))
+    eq["unpack"] = text == res["unpack_text"]
+
+    # seqsort of the corrected index: [seqsort]'s .rank
+    rank_m = os.path.join(workdir, "ec_M.rank")
+    (secs["seqsort_M"], _, _), _ = host_only("seqsort -M", lambda: run_cli(
+        ["seqsort", "-M", "-t", t_, ss["fmd"]], rank_m))
+    eq["seqsort"] = same_bytes(rank_m, ss["rank"])
+
+    # correct of the fix rerun's reads: the card's correct of them
+    sub_m = os.path.join(workdir, "sub_M.fq")
+    (secs["correct_M"], _, _), _ = host_only("correct -M", lambda: run_cli(
+        ["correct", "-M", "-t", t_, ec_res["fmd"], ec_res["sub_fq"]], sub_m))
+    eq["correct"] = same_bytes(sub_m, ec_res["sub_out"])
+
+    # unitig: one thread on the window (the card's bytes), then
+    # OOC_THREADS on the corrected index (the reference's -t N contract
+    # against [unitig]'s p0: unique end ids, mass within 2%)
+    win_fmd, win_rank, win_text = win
+    (secs["unitig_window_M"], text, _), _ = host_only(
+        "unitig -M -t 1", lambda: run_cli(
+            ["unitig", "-M", "-t", "1", "-l", "50", "-r", win_rank,
+             win_fmd]))
+    eq["unitig_window"] = text == win_text
+    p0_m = os.path.join(workdir, "p0_M.mag")
+    (secs["unitig_M"], _, _), _ = host_only("unitig -M -t N", lambda: run_cli(
+        ["unitig", "-M", "-t", t_, "-l", "50", "-r", ss["rank"], ss["fmd"]],
+        p0_m))
+    ends, mass = mag_ends_mass(p0_m)
+    _, mass_p0 = mag_ends_mass(ut["p0"])
+    eq["unitig_unique_ends"] = len(ends) == len(set(ends))
+    eq["unitig_mass_2pct"] = abs(mass - mass_p0) <= 0.02 * mass_p0
+    out.update(unitig_mass_M=mass, unitig_mass_p0=mass_p0,
+               unitigs_M=len(ends) // 2)
+
+    # chkbwt -r of the index (passes), then of a corrupted copy
+    (secs["chkbwt_M"], _, err), _ = host_only(
+        "chkbwt -M -r", lambda: run_cli(["chkbwt", "-M", "-r", fmd]))
+    eq["chkbwt_passes"] = "rank check passed" in err
+    bad = os.path.join(workdir, "bad_M.fmd")
+    at = corrupt_copy(fmd, bad)
+    same_len = int(rld.read_fmd(bad).lengths.sum()) == n_sym
+    e = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(e):
+        try:
+            outcome = main(["chkbwt", "-M", "-r", bad])
+        except OSError as x:
+            outcome = f"OSError: {x}"
+    secs["chkbwt_M_corrupted"] = time.perf_counter() - t0
+    msg = [ln for ln in e.getvalue().splitlines() if "::chkbwt]" in ln]
+    # a copy whose BWT keeps its length must fail; one whose runs hold
+    # another length may pass, as in fermi_tpu (fault F4)
+    if same_len:
+        eq["chkbwt_corrupted_fails"] = outcome == 1
+    for p in (bad, bad + ".blk"):
+        if os.path.exists(p):
+            os.remove(p)
+    out.update(corrupted_byte=at, corrupted_same_length=same_len,
+               corrupted_outcome=outcome, corrupted_messages=msg[-2:])
+
+    # remap of the pairs window
+    (secs["remap_M"], text, _), _ = host_only("remap -M", lambda: run_cli(
+        ["remap", "-M", "-r", rp["rank"], rp["fmd"], rp["ctg"]]))
+    eq["remap"] = text == rp["text"]
+
+    # streaming append of the last part onto the merge of the others
+    part = os.path.join(workdir, "part3.fa")
+    text4 = suffix.build_text([dna.encode(r.seq)
+                               for r in fastx.read_fastx(part)])
+    app = os.path.join(workdir, "appended_stream.fmd")
+    t0 = time.perf_counter()
+    fm_append_streaming(os.path.join(workdir, "merged_head.fmd"), text4, app,
+                        n_threads=OOC_THREADS, device=dev)
+    secs["append_streaming"] = time.perf_counter() - t0
+    eq["append_streaming"] = same_bytes(app, fmd)
+
+    log("outofcore", msym=n_sym / 1e6, threads=OOC_THREADS,
+        queries=N_OOC_QUERIES, **out, seconds=secs, equal=eq,
+        phase_seconds=time.perf_counter() - t_phase)
+    if not all(eq.values()):
+        raise AssertionError(f"-M differs: {eq}")
+
+
 def ptxas_report(jobs):
     """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
     flags, output discarded); returns a function that waits and gives, per
@@ -2437,8 +2668,8 @@ def main():
                       native.sw_job()])
     for get in (native.get_lib, native.get_ec_lib, native.get_unitig_lib,
                 native.get_frags_lib, native.get_sequtil_lib,
-                native.get_smem_lib, native.get_remap_lib,
-                native.get_bprope_lib):
+                native.get_smem_lib, native.get_seqsort_lib,
+                native.get_remap_lib, native.get_bprope_lib):
         get()
     rank_cuda.get_lib()
     sw_cuda.get_lib()
@@ -2474,7 +2705,7 @@ def main():
         ut = unitig_phase(workdir, ss["fmd"], res["genome"], dev)
         profile_unitig(ss["fmd"], dev)
         win_fmd, win_rank = cross_check_ec(workdir, ec_res["win_fq"], dev)
-        cross_check_unitig(workdir, win_fmd, win_rank, dev)
+        win_unitig = cross_check_unitig(workdir, win_fmd, win_rank, dev)
         # slice 6: each phase draws from a stream of its own, so the draws
         # of the phases around them stay as they were
         run = run_phase(workdir, ec_res["run_fq"], ec_res["win_fq"],
@@ -2482,8 +2713,8 @@ def main():
         k1_chkbwt = chkbwt_phase(workdir, res["fmd"], dev)
         exact_long_phase(np.random.default_rng(args.seed + 1), workdir,
                          res["genome"], res["fmd"], dev)
-        remap_pairs_phase(np.random.default_rng(args.seed + 2), workdir,
-                          res["genome"], dev)
+        rp = remap_pairs_phase(np.random.default_rng(args.seed + 2),
+                               workdir, res["genome"], dev)
         # slice 7, from a stream of its own too
         k1_paired = paired_phase(np.random.default_rng(args.seed + 3),
                                  workdir, res["genome"], dev)
@@ -2498,6 +2729,9 @@ def main():
         k1_dist = dist_phase(np.random.default_rng(args.seed + 4), workdir,
                              res["fmd"], res["q_fa"], dev)
         ropebwt_phase(workdir, ec_res["win_fq"], dev)
+        # slice 9: -M, out of core on the host, over the files above
+        outofcore_phase(workdir, dev, res, ec_res, ss, ut,
+                        (win_fmd, win_rank, win_unitig), rp)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"] + ut["k1_launches"]
                    + run["k1_launches"] + k1_chkbwt + sum(setops)

@@ -8,10 +8,13 @@ K1 on the card), the frontier kept on the device between levels.  Phase 2
 threads, fed by the collected solid-k-mer table; FERMI_TPU_DEVICE_FIX=1
 sends it to the bounded-beam device fix (search/ecfix_device.py) instead.
 
+On the out-of-core record cache of `-M` (index/blkidx.BlkIndex), collect
+runs on the host instead: the native walk of native/smem.cpp over the mapped
+records (collect_solid_kmers_native, fermi_tpu's native collect), and the
+fix on the host engine.
+
 Output is byte-identical to fermi_tpu's `ec_correct` and reference
-`fermi correct`.  Not ported: fermi_tpu's native collect DFS and the `-M`
-out-of-core index (ROADMAP queue 1, item 3c); collect here always runs on
-the index's device.
+`fermi correct`.
 """
 
 import ctypes
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from fermi_tpu_torch import native
+from fermi_tpu_torch.index.blkidx import BlkIndex
 from fermi_tpu_torch.index.fmd import FMDIndex
 
 MAX_KMER = 27
@@ -127,6 +131,41 @@ def collect_solid_kmers(index: FMDIndex, w: int, min_occ: int,
             val.cpu().numpy(), (int(val.numel()), n_info))
 
 
+def collect_solid_kmers_native(index, w: int, min_occ: int,
+                               n_threads: int | None = None):
+    """collect_solid_kmers on the host (native/smem.cpp fec_collect, or
+    fec_collect_blk over the mapped record cache when `index` is a
+    BlkIndex): the same (cls, key, val) set, in another order, and the same
+    counts; suffix classes are walked in parallel."""
+    from fermi_tpu_torch.search.smem import _native_index_arrays
+
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 1, 16)
+    lib = native.get_smem_lib()
+    counts = np.zeros(3, np.int64)
+    if isinstance(index, BlkIndex):
+        ptr = lib.fec_collect_blk(index.path.encode(), w, min_occ, n_threads,
+                                  counts.ctypes.data)
+    else:
+        blocks, occ, cnt, n_seqs = _native_index_arrays(index)
+        ptr = lib.fec_collect(blocks.ctypes.data, occ.ctypes.data,
+                              blocks.shape[0], cnt.ctypes.data, n_seqs, w,
+                              min_occ, n_threads, counts.ctypes.data)
+    if not ptr:
+        if counts[0] == -1:
+            raise OSError(f"fec_collect_blk: cannot map {index.path}")
+        raise MemoryError("fec_collect: out of memory")
+    n = int(counts[0])
+    try:
+        flat = np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int64)),
+            shape=(3 * n + 1,))[: 3 * n].reshape(n, 3).copy()
+    finally:
+        lib.fsmem_free(ptr)
+    return (flat[:, 0].copy(), flat[:, 1].astype(np.uint32),
+            flat[:, 2].astype(np.uint8), (int(counts[1]), int(counts[2])))
+
+
 class SolidTable:
     """Host handle over the native per-class hash tables (native/ec.cpp)."""
 
@@ -184,21 +223,32 @@ def fix_reads(table: SolidTable, opt, seqs: list[bytes], quals: list[bytes],
     return out_seqs, out_quals, info, n_query
 
 
-def ec_correct(index: FMDIndex, fastx_path, out_fp, w: int = -1,
+def ec_correct(index, fastx_path, out_fp, w: int = -1,
                min_occ: int = 3, keep_bad=False, is_paired=False,
                max_corr=0.3, trim_l=0, step=5, n_threads: int = 8,
                verbose: bool = True):
     """Full `fermi correct` pipeline; writes corrected FASTQ to out_fp
-    (byte-identical to fermi_tpu and the reference).  Collect runs on the
-    index's device; the fix on the host engine, or on the index's device
-    with FERMI_TPU_DEVICE_FIX=1 (flagged reads redone on the host engine)."""
+    (byte-identical to fermi_tpu and the reference).  On an FMDIndex,
+    collect runs on the index's device; the fix on the host engine, or on
+    the index's device with FERMI_TPU_DEVICE_FIX=1 (flagged reads redone
+    on the host engine).  On a BlkIndex (`-M`), both run on the host:
+    collect by the native walk over the mapped records, the fix on the host
+    engine."""
     from fermi_tpu_torch.core import fastx
 
     if w < 0:
         w = auto_k(index.total)
         if verbose:
             sys.stderr.write(f"[M::ec_correct] set k-mer length to {w}\n")
-    cls, key, val, (n_tot, n_info) = collect_solid_kmers(index, w, min_occ)
+    on_device = not isinstance(index, BlkIndex)
+    if on_device:
+        cls, key, val, (n_tot, n_info) = collect_solid_kmers(index, w,
+                                                             min_occ)
+    else:
+        t0 = time.perf_counter()
+        cls, key, val, (n_tot, n_info) = collect_solid_kmers_native(
+            index, w, min_occ, n_threads)
+        STATS["collect_s"] = time.perf_counter() - t0
     if verbose:
         sys.stderr.write(
             f"[M::ec_correct] collected {n_info} informative and "
@@ -207,7 +257,7 @@ def ec_correct(index: FMDIndex, fastx_path, out_fp, w: int = -1,
     opt = dict(w=w, min_occ=min_occ, keep_bad=keep_bad, is_paired=is_paired,
                max_corr=max_corr, trim_l=trim_l, step=step)
     dev_table = None
-    if os.environ.get("FERMI_TPU_DEVICE_FIX", "0") == "1":
+    if on_device and os.environ.get("FERMI_TPU_DEVICE_FIX", "0") == "1":
         from fermi_tpu_torch.search.ecfix_device import build_device_table
         dev_table = build_device_table(cls, key, val, w, device=index.device)
     STATS.update(fix_s=0.0, reads=0)

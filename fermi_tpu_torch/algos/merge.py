@@ -13,9 +13,10 @@ Unlike fermi_tpu (whose walk makes e0's position in e1's integer type and
 raises when e0's is wider), the position in e1 stays in e1's index domain
 and the position in e0 in e0's, so a wide index merges with a narrow one.
 
-Not ported: `fm_append_streaming`, fermi_tpu's host engine over the
-mmapped record cache (ROADMAP queue 1, item 3c); the port's `build -i`
-gets the same bytes from `compute_gap_bits` on the device.
+`fm_append_streaming` appends a text block to an index on disk without
+expanding the old index in RAM (fermi_tpu's host engine over the mmapped
+record cache, native/rld_codec.cpp fappend_*); the CLI's `build -i` gets
+the same bytes from `compute_gap_bits` on the device.
 """
 
 import time
@@ -23,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from fermi_tpu_torch import native
 from fermi_tpu_torch.index.fmd import FMDIndex
 
 # Counters of the last compute_gap_bits, for measurement (the chip smoke
@@ -102,3 +104,42 @@ def fm_merge(e0: FMDIndex, bwt0: np.ndarray, e1: FMDIndex, bwt1: np.ndarray,
     return merge_bwts(torch.from_numpy(np.ascontiguousarray(bwt0)).to(dev),
                       torch.from_numpy(np.ascontiguousarray(bwt1)).to(dev),
                       bits).cpu().numpy()
+
+
+def fm_append_streaming(old_fmd: str, new_text: np.ndarray, out_fmd: str,
+                        n_threads: int = 4, sbits: int = 3, device=None):
+    """Append a text block to an index on disk at the reference's fm_append
+    memory model (merge.c:139-209, fermi.1:253-261): the old index is never
+    expanded in RAM.  Its rank queries go through its mapped .fmd.blk
+    record cache (built beside it when missing or stale; file-backed,
+    evictable), and its runs are stream-decoded straight into the RLD
+    encoder with the new symbols inserted.  The new block's BWT is sorted
+    on `device` (default CUDA; "cpu" runs the plain version), then its
+    walks run on the host.  Anonymous memory is O(block): the block's BWT,
+    its host index and one int64 position per new symbol.  The output's
+    bytes equal `build -i`'s."""
+    from fermi_tpu_torch import resolve_device
+    from fermi_tpu_torch.construct import blocked
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.search.smem import _native_index_arrays
+
+    device = resolve_device(device)
+    lib = native.get_lib()
+    blk0 = ensure_blk(old_fmd, n_threads=n_threads)
+    bwt1 = np.ascontiguousarray(
+        blocked.device_bwt(np.ascontiguousarray(new_text, np.uint8), device),
+        np.uint8)
+    blocks, occ, cnt8, n_seqs1 = _native_index_arrays(
+        FMDIndex.from_bwt(bwt1, "cpu"))
+    n1 = int(bwt1.size)
+    pos = np.empty(n1, np.int64)
+    rc = lib.fappend_gaps(blk0.path.encode(), blocks.ctypes.data,
+                          occ.ctypes.data, blocks.shape[0], cnt8.ctypes.data,
+                          n_seqs1, blk0.n_seqs, pos.ctypes.data, n_threads)
+    if rc:
+        raise OSError(f"fappend_gaps({old_fmd}) failed rc={rc}")
+    lib.fappend_sort(pos.ctypes.data, n1)
+    rc = lib.fappend_interleave(old_fmd.encode(), bwt1.ctypes.data,
+                                pos.ctypes.data, n1, out_fmd.encode(), sbits)
+    if rc:
+        raise OSError(f"fappend_interleave({old_fmd}) failed rc={rc}")

@@ -4,7 +4,8 @@ smem.c:114-394).
 The port of fermi_tpu/algos/remap.py.  Contigs are the queries, the read
 index the database.  Host code: every contig's SMEMs come from the native
 sequential engine (search/smem.smem_all_native_raw over the index's host
-arrays) and feed the native paircov engine (native/remap.cpp), which keeps
+arrays, or over the mapped record cache of `-M` when the index is an
+index/blkidx.BlkIndex) and feed the native paircov engine (native/remap.cpp), which keeps
 the reference's pairing bookkeeping, khash bucket order included (the
 UR:Z: lists it emits feed the scaffolder in bucket-scan order).  `paircov`
 over `KHash64` is that engine's plain version, which the tests hold it

@@ -7,8 +7,9 @@ sorted[k] = i<<2 | contained<<1 | dup, plus the mirrored entry for the
 reverse complement.  The walks run batched on the index's device; the
 scatter is a host numpy write, in batch order, as in fermi_tpu.
 
-Not ported: `seqsort_native` (fermi_tpu's host engine) and the `-M`
-out-of-core index (ROADMAP queue 1, item 3c).
+`seqsort_native` is fermi_tpu's host engine (native/seqsort.cpp, the same
+walk in striped threads), for the `-M` path's record cache
+(index/blkidx.BlkIndex) or the host arrays of an index.
 """
 
 import sys
@@ -16,8 +17,34 @@ import sys
 import numpy as np
 import torch
 
+from fermi_tpu_torch import native
+
 from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.search.extend import seqrank_walk
+
+
+def seqsort_native(index, n_threads: int = 4,
+                   verbose: bool = True) -> np.ndarray:
+    """The .rank array by the host engine: over the mapped record cache
+    when `index` is a BlkIndex (`-M`), else over the index's host arrays."""
+    from fermi_tpu_torch.index.blkidx import BlkIndex
+    from fermi_tpu_torch.search.smem import _native_index_arrays
+
+    lib = native.get_seqsort_lib()
+    sorted_arr = np.zeros(index.n_seqs, np.uint64)
+    if isinstance(index, BlkIndex):
+        rc = lib.fseqsort_blk(index.path.encode(), sorted_arr.ctypes.data,
+                              n_threads)
+    else:
+        blocks, occ, cnt, n_seqs = _native_index_arrays(index)
+        rc = lib.fseqsort(blocks.ctypes.data, occ.ctypes.data,
+                          blocks.shape[0], cnt.ctypes.data, n_seqs,
+                          sorted_arr.ctypes.data, n_threads)
+    if rc:
+        raise OSError(f"seqsort_native failed (rc={rc})")
+    if verbose:
+        _report(sorted_arr)
+    return sorted_arr
 
 
 def _report(sorted_arr):

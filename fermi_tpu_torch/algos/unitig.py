@@ -9,13 +9,18 @@ one read, extends in Python ints (HostIndex.extend1), where numpy's call
 overhead would be most of the cost.  The port runs it only on the small
 indexes of local assemblies (algos/scaf.py `fm6_api_unitig`: scaffolding's
 gaps and `example`); a full index's unitigs come from the device link
-records (algos/unitig_bulk.py).
+records (algos/unitig_bulk.py), or, for the out-of-core `-M` path, from the
+native host walk (`fm6_unitig_native`, native/unitig.cpp funitig_run_blk,
+with the same control flow, threaded as the reference's `-t N`).
 
 Interval representation: python lists [kb, kf, sz, info].
 """
 
+import ctypes
+
 import numpy as np
 
+from fermi_tpu_torch import native
 from fermi_tpu_torch.algos.hostindex import HostIndex
 
 
@@ -362,3 +367,46 @@ def fm6_unitig(e: HostIndex, min_match: int, out_fp, sorted_arr=None):
     """The unitigs of a host index as MAG text, in the reference's t=1
     seed order."""
     UnitigBuilder(e, min_match, sorted_arr).run(out_fp)
+
+
+def fm6_unitig_native(e, min_match: int, sorted_arr=None,
+                      n_threads: int = 1) -> str:
+    """The unitigs as MAG text by the native host walk (native/unitig.cpp):
+    over the mapped record cache when `e` is a BlkIndex (`-M`), else over
+    the host arrays of an FMDIndex (copied once and cached on it).
+
+    n_threads == 1 gives the bytes of the reference's `unitig -t 1`.
+    n_threads > 1 follows the reference's `-t N` (unitig.c:378-407): stride
+    workers over shared atomic bitmaps, so which unitig claims a read at a
+    boundary depends on timing, as in the threaded reference; the output's
+    order is deterministic."""
+    from fermi_tpu_torch.index.blkidx import BlkIndex
+    from fermi_tpu_torch.search.smem import _native_index_arrays
+
+    lib = native.get_unitig_lib()
+    srt = None
+    if sorted_arr is not None:
+        srt = np.ascontiguousarray(sorted_arr, dtype=np.uint64)
+        if srt.size != e.n_seqs:
+            raise ValueError(f".rank array of {srt.size} entries for "
+                             f"{e.n_seqs} sequences")
+    out_len = ctypes.c_int64()
+    if isinstance(e, BlkIndex):
+        ptr = lib.funitig_run_blk(e.path.encode(), min_match,
+                                  None if srt is None else srt.ctypes.data,
+                                  n_threads, ctypes.byref(out_len))
+    else:
+        blocks, occ, cnt8, n_seqs = _native_index_arrays(e)
+        ptr = lib.funitig_run(blocks.ctypes.data, occ.ctypes.data,
+                              blocks.shape[0], cnt8.ctypes.data, n_seqs,
+                              min_match,
+                              None if srt is None else srt.ctypes.data,
+                              n_threads, ctypes.byref(out_len))
+    if not ptr:
+        if out_len.value < 0:
+            raise OSError(f"funitig_run_blk: cannot map {e.path}")
+        raise MemoryError("funitig_run: out of memory")
+    try:
+        return ctypes.string_at(ptr, out_len.value).decode("latin1")
+    finally:
+        lib.funitig_free(ptr)

@@ -87,6 +87,8 @@ def stitch_native(index, store, seqs, own_ks, min_match, sorted_arr=None):
         store.nei_buf[0].shape[1], *(a.ctypes.data for a in sb),
         sbn.ctypes.data, store.sb_buf[0].shape[1], redo.ctypes.data, idt64,
         ctypes.byref(out_len), ctypes.byref(n_rec))
+    if not ptr:
+        raise MemoryError("funitig_stitch: out of memory")
     try:
         text = ctypes.string_at(ptr, out_len.value).decode("latin1")
     finally:

@@ -8,7 +8,10 @@ The same arguments and output bytes as fermi_tpu's CLI (cli/main.py), which
 mirrors reference main.c.  Each subcommand that queries or builds an index
 runs on CUDA unless `--device cpu` (or another device) is given; `clean`,
 `bitand`, `recode`, `remap`, the sequence tools and `ropebwt -a bpr` are
-host code, as in fermi_tpu.
+host code, as in fermi_tpu.  `-M` (unpack, exact, chkbwt, correct,
+seqsort/seqrank, unitig, remap) runs the command out of core on the host,
+as fermi_tpu does: off the mmapped .fmd or its .fmd.blk record cache, with
+no device, so it refuses `--device`.
 """
 
 import argparse
@@ -20,10 +23,21 @@ import numpy as np
 _T0 = time.monotonic()
 
 
-def _not_ported(cmd, flag, item):
-    sys.stderr.write(f"[E::{cmd}] {flag} is not ported to fermi_tpu_torch "
-                     f"yet (ROADMAP queue 1, {item})\n")
-    return 1
+def _mmap_device_conflict(cmd, args):
+    """-M runs on the host and touches no device: with --device as well,
+    exit 1 naming the conflict (nothing would run on that device)."""
+    if args.mmap and args.device is not None:
+        sys.stderr.write(f"[E::{cmd}] -M runs out of core on the host and "
+                         f"touches no device; drop --device {args.device} "
+                         "or -M\n")
+        return True
+    return False
+
+
+def _mmap_arg(p):
+    p.add_argument("-M", dest="mmap", action="store_true",
+                   help="out of core on the host: query the index off disk "
+                        "(mmap), no device")
 
 
 def _device_arg(p):
@@ -86,8 +100,7 @@ def cmd_build(args):
 def _add_unpack(sub):
     p = sub.add_parser("unpack", help="retrieve DNA sequences from an index")
     p.add_argument("-i", dest="ids", type=int, action="append", default=[])
-    p.add_argument("-M", dest="mmap", action="store_true",
-                   help="query the compressed index via mmap (bounded RSS)")
+    _mmap_arg(p)
     _device_arg(p)
     p.add_argument("fmd")
     p.set_defaults(func=cmd_unpack)
@@ -99,16 +112,27 @@ def cmd_unpack(args):
     from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.search import extend as se
 
-    device = resolve_device(args.device)
+    if _mmap_device_conflict("unpack", args):
+        return 1
     if args.mmap:
-        return _not_ported("unpack", "-M (mmap index)", "item 3c")
-    idx = FMDIndex.restore(args.fmd, device)
+        # LF walks in the compressed domain of the mmapped .fmd
+        # (rld.c:327-346)
+        from fermi_tpu_torch.index.mmapfmd import MmapIndex
+
+        idx = MmapIndex(args.fmd)
+
+        def walk(chunk):
+            return idx.retrieve(chunk, return_ranks=True)
+    else:
+        idx = FMDIndex.restore(args.fmd, resolve_device(args.device))
+
+        def walk(chunk):
+            return se.retrieve_strings(idx, chunk, max_len=1 << 16)
     n = idx.n_seqs
     ids = [i for i in args.ids if i < n] if args.ids else range(n)
     ids = np.fromiter(ids, dtype=np.int64)
     for lo in range(0, len(ids), 4096):
-        chunk = ids[lo: lo + 4096]
-        seqs, ranks = se.retrieve_strings(idx, chunk, max_len=1 << 16)
+        seqs, ranks = walk(ids[lo: lo + 4096])
         for s, k in zip(seqs, ranks):
             sys.stdout.write(f"{dna.decode(s)}\t{int(k)}\n")
     return 0
@@ -116,7 +140,7 @@ def cmd_unpack(args):
 
 def _add_exact(sub):
     p = sub.add_parser("exact", help="find exact (supermaximal) matches")
-    p.add_argument("-M", dest="mmap", action="store_true")
+    _mmap_arg(p)
     p.add_argument("-s", dest="self_match", action="store_true")
     _device_arg(p)
     p.add_argument("fmd")
@@ -130,10 +154,14 @@ def cmd_exact(args):
     from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.search import smem as sm
 
-    device = resolve_device(args.device)
-    if args.mmap:
-        return _not_ported("exact", "-M (mmap index)", "item 3c")
-    idx = FMDIndex.restore(args.fmd, device)
+    if _mmap_device_conflict("exact", args):
+        return 1
+    if args.mmap:  # the native engine off the mapped record cache
+        from fermi_tpu_torch.index.blkidx import ensure_blk
+
+        idx = ensure_blk(args.fmd)
+    else:
+        idx = FMDIndex.restore(args.fmd, resolve_device(args.device))
     recs = list(fastx.read_fastx(args.fastx))
     seqs = [dna.encode(r.seq) for r in recs]
     batch = 4096
@@ -154,7 +182,7 @@ CHKBWT_CHUNK = 1 << 22     # positions a rank-check step compares
 
 def _add_chkbwt(sub):
     p = sub.add_parser("chkbwt", help="validate the FMD-index")
-    p.add_argument("-M", dest="mmap", action="store_true")
+    _mmap_arg(p)
     p.add_argument("-r", dest="check_rank", action="store_true",
                    help="check rank() at every position against a running "
                         "count (kernel K1 on the card)")
@@ -175,9 +203,11 @@ def cmd_chkbwt(args):
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    device = resolve_device(args.device)
+    if _mmap_device_conflict("chkbwt", args):
+        return 1
     if args.mmap:
-        return _not_ported("chkbwt", "-M (mmap index)", "item 3c")
+        return _chkbwt_mmap(args)
+    device = resolve_device(args.device)
     runs = rld.read_fmd(args.fmd)
     mc = ", ".join(str(int(x)) for x in runs.mcnt)
     sys.stderr.write(f"[M::chkbwt] marginal counts: ({mc})\n")
@@ -210,9 +240,69 @@ def cmd_chkbwt(args):
     return 0
 
 
+def _chkbwt_mmap(args):
+    """chkbwt on the host without expanding the BWT in RAM: the record
+    cache checked against itself (each block's occ row against the running
+    counts of the blocks before it) and, once a chunk of rows, against a
+    rank query in the compressed domain of the mapped .fmd (fermi_tpu's
+    `chkbwt -M`)."""
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.index.mmapfmd import MmapIndex
+
+    m = MmapIndex(args.fmd)
+    mc = ", ".join(str(int(x)) for x in m.mcnt)
+    sys.stderr.write(f"[M::chkbwt] marginal counts: ({mc})\n")
+    blk = ensure_blk(args.fmd)
+    rstride = 256 if blk.wide else 192
+    odt = np.uint64 if blk.wide else np.uint32
+    raw = np.memmap(blk.path, np.uint8, "r", offset=4096)
+    raw = raw.reshape(blk.n_rows, rstride)
+    run_cnt = np.zeros(6, np.int64)
+    chunk = 1 << 16
+    rng = np.random.default_rng(0)
+    for lo in range(0, blk.n_rows, chunk):
+        rows = np.asarray(raw[lo: lo + chunk])
+        occ = rows[:, 128:128 + (48 if blk.wide else 24)].copy()
+        occ = occ.view(odt).reshape(-1, 6).astype(np.int64)
+        if args.check_rank:
+            hist = np.zeros((len(rows), 6), np.int64)
+            for c in range(6):
+                hist[:, c] = (rows[:, :128] == c).sum(axis=1)
+            expect = run_cnt + np.vstack(
+                [np.zeros(6, np.int64), np.cumsum(hist[:-1], axis=0)])
+            if not np.array_equal(occ, expect):
+                bad = int(np.argwhere((occ != expect).any(axis=1))[0][0])
+                sys.stderr.write(
+                    f"[E::chkbwt] occ row {lo + bad} mismatch\n")
+                return 1
+            run_cnt = expect[-1] + hist[-1]
+            # tie the cache to the compressed index: one rank6 a chunk
+            pos = int(rng.integers(lo, min(lo + chunk, blk.n_rows))) << 7
+            pos = min(pos, blk.total)
+            got = m.rank6(np.array([pos]))[0]
+            want = occ[min((pos >> 7) - lo, len(occ) - 1)]
+            if (pos & 127) == 0 and pos < blk.total and \
+                    not np.array_equal(got, want):
+                sys.stderr.write(f"[E::chkbwt] fmd/blk rank({pos})\n")
+                return 1
+        if args.plain:
+            flat = rows[:, :128].reshape(-1)
+            end = min(blk.total - (lo << 7), flat.size)
+            sys.stdout.write(dna.decode(flat[:end]))
+    if args.check_rank:
+        if not np.array_equal(run_cnt, m.mcnt[1:7].astype(np.int64)):
+            sys.stderr.write("[E::chkbwt] marginal count mismatch\n")
+            return 1
+        sys.stderr.write("[M::chkbwt] rank check passed\n")
+    if args.plain:
+        sys.stdout.write("\n")
+    return 0
+
+
 def _add_correct(sub):
     p = sub.add_parser("correct", help="error-correct reads against an index")
-    p.add_argument("-M", dest="mmap", action="store_true")
+    _mmap_arg(p)
     p.add_argument("-K", dest="keep_bad", action="store_true")
     p.add_argument("-t", dest="n_threads", type=int, default=1)
     p.add_argument("-k", dest="w", type=int, default=-1)
@@ -230,16 +320,22 @@ def _add_correct(sub):
 
 def cmd_correct(args):
     """Collect on the device, fix on the host engine (or on the device with
-    FERMI_TPU_DEVICE_FIX=1); the corrected FASTQ goes to stdout."""
+    FERMI_TPU_DEVICE_FIX=1); with -M both on the host, collect off the
+    mapped record cache.  The corrected FASTQ goes to stdout."""
     from fermi_tpu_torch import resolve_device
     from fermi_tpu_torch.algos import correct as ec
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    device = resolve_device(args.device)
+    if _mmap_device_conflict("correct", args):
+        return 1
     if args.mmap:
-        return _not_ported("correct", "-M (mmap index)", "item 3c")
-    ec.ec_correct(FMDIndex.restore(args.fmd, device), args.fastx, sys.stdout,
-                  w=args.w, min_occ=args.min_occ, keep_bad=args.keep_bad,
+        from fermi_tpu_torch.index.blkidx import ensure_blk
+
+        idx = ensure_blk(args.fmd)
+    else:
+        idx = FMDIndex.restore(args.fmd, resolve_device(args.device))
+    ec.ec_correct(idx, args.fastx, sys.stdout, w=args.w,
+                  min_occ=args.min_occ, keep_bad=args.keep_bad,
                   is_paired=args.is_paired, max_corr=args.max_corr,
                   trim_l=args.trim_l, step=args.step,
                   n_threads=args.n_threads)
@@ -249,10 +345,10 @@ def cmd_correct(args):
 def _add_seqsort(sub):
     for name in ("seqsort", "seqrank"):
         p = sub.add_parser(name, help="compute the rank of sequences")
-        p.add_argument("-M", dest="mmap", action="store_true")
+        _mmap_arg(p)
         p.add_argument("-t", dest="n_threads", type=int, default=1,
-                       help="accepted for compatibility; the walks run on "
-                            "the device")
+                       help="threads of the host walks of -M; without -M "
+                            "the walks run on the device and -t is ignored")
         _device_arg(p)
         p.add_argument("fmd")
         p.set_defaults(func=cmd_seqsort)
@@ -261,13 +357,19 @@ def _add_seqsort(sub):
 def cmd_seqsort(args):
     """The .rank array (uint64 per sequence) as raw bytes on stdout."""
     from fermi_tpu_torch import resolve_device
-    from fermi_tpu_torch.algos.seqsort import seqsort
+    from fermi_tpu_torch.algos.seqsort import seqsort, seqsort_native
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    device = resolve_device(args.device)
-    if args.mmap:
-        return _not_ported(args.cmd, "-M (mmap index)", "item 3c")
-    arr = seqsort(FMDIndex.restore(args.fmd, device))
+    if _mmap_device_conflict(args.cmd, args):
+        return 1
+    if args.mmap:  # the host walks off the mapped record cache
+        from fermi_tpu_torch.index.blkidx import ensure_blk
+
+        arr = seqsort_native(ensure_blk(args.fmd),
+                             n_threads=max(args.n_threads, 1))
+    else:
+        arr = seqsort(FMDIndex.restore(args.fmd,
+                                       resolve_device(args.device)))
     sys.stdout.flush()
     sys.stdout.buffer.write(arr.tobytes())
     sys.stdout.buffer.flush()
@@ -276,9 +378,13 @@ def cmd_seqsort(args):
 
 def _add_unitig(sub):
     p = sub.add_parser("unitig", help="construct unitigs")
-    p.add_argument("-M", dest="mmap", action="store_true")
+    _mmap_arg(p)
     p.add_argument("-l", dest="min_match", type=int, default=30)
-    p.add_argument("-t", dest="n_threads", type=int, default=1)
+    p.add_argument("-t", dest="n_threads", type=int, default=1,
+                   help="threads of the host walk of -M (more than one: the "
+                        "reference's -t N, whose boundary reads depend on "
+                        "timing); without -M the links are computed on the "
+                        "device, -t is ignored and the output is -t 1's")
     p.add_argument("-r", dest="rank_file", default=None)
     _device_arg(p)
     p.add_argument("fmd")
@@ -287,22 +393,30 @@ def _add_unitig(sub):
 
 def cmd_unitig(args):
     """Link records on the device, the native stitch on the host: the MAG
-    text of `unitig -t 1` on stdout."""
+    text of `unitig -t 1` on stdout, whatever -t is.  With -M, the native
+    host walk off the mapped record cache, in -t threads."""
     from fermi_tpu_torch import resolve_device
     from fermi_tpu_torch.algos.unitig_bulk import fm6_unitig_device
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    device = resolve_device(args.device)
+    if _mmap_device_conflict("unitig", args):
+        return 1
     if args.mmap:
-        return _not_ported("unitig", "-M (mmap index)", "item 3c")
-    if args.n_threads > 1:
-        return _not_ported("unitig", f"-t {args.n_threads} (the threaded "
-                           "host engine)", "item 3c")
-    idx = FMDIndex.restore(args.fmd, device)
+        from fermi_tpu_torch.index.blkidx import ensure_blk
+
+        idx = ensure_blk(args.fmd)
+    else:
+        idx = FMDIndex.restore(args.fmd, resolve_device(args.device))
     sorted_arr = None
     if args.rank_file:
         sorted_arr = np.fromfile(args.rank_file, np.uint64, idx.n_seqs)
-    fm6_unitig_device(idx, args.min_match, sys.stdout, sorted_arr)
+    if args.mmap:
+        from fermi_tpu_torch.algos.unitig import fm6_unitig_native
+
+        sys.stdout.write(fm6_unitig_native(idx, args.min_match, sorted_arr,
+                                           args.n_threads))
+    else:
+        fm6_unitig_device(idx, args.min_match, sys.stdout, sorted_arr)
     return 0
 
 
@@ -495,7 +609,7 @@ def _add_remap(sub):
         "remap", help="compute coverage and PE coverage (host code: the "
                       "index is restored on the CPU, the contigs' SMEMs "
                       "come from the native engine)")
-    p.add_argument("-M", dest="mmap", action="store_true")
+    _mmap_arg(p)
     p.add_argument("-l", dest="skip", type=int, default=50)
     p.add_argument("-c", dest="min_pcv", type=int, default=0)
     p.add_argument("-D", dest="max_dist", type=int, default=1000)
@@ -514,9 +628,12 @@ def cmd_remap(args):
     from fermi_tpu_torch.algos.remap import remap
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    if args.mmap:
-        return _not_ported("remap", "-M (mmap index)", "item 3c")
-    idx = FMDIndex.restore(args.fmd, "cpu")
+    if args.mmap:  # the contigs' SMEMs off the mapped record cache
+        from fermi_tpu_torch.index.blkidx import ensure_blk
+
+        idx = ensure_blk(args.fmd)
+    else:
+        idx = FMDIndex.restore(args.fmd, "cpu")
     sorted_arr = None
     if args.rank_file:
         sorted_arr = np.fromfile(args.rank_file, np.uint64)

@@ -3,13 +3,15 @@
 Shared libraries, each built from one source file of this package into
 fermi_tpu_torch/build/ at first use (the directory is not committed):
 
-  * the RLD\\2 codec (native/rld_codec.cpp), the error-correction fix
-    engine (native/ec.cpp), the unitig stitch (native/unitig.cpp with
-    native/fmindex.h), the read encoders (native/frags.cpp), the fltuniq
-    filter (native/sequtil.cpp), the long-query SMEM engine
-    (native/smem.cpp with native/fmindex.h), remap's paircov
-    (native/remap.cpp) and the B+-rope BWT builder behind `ropebwt -a bpr`
-    (native/bprope.cpp), plain g++, no torch headers;
+  * the RLD\\2 codec with the mmapped-index reader, the .fmd.blk record
+    cache and the streaming append (native/rld_codec.cpp), the
+    error-correction fix engine (native/ec.cpp), the unitig walk and stitch
+    (native/unitig.cpp), the read encoders (native/frags.cpp), the fltuniq
+    filter (native/sequtil.cpp), the SMEM engine and the collect walk
+    (native/smem.cpp), the seqsort walk (native/seqsort.cpp), remap's
+    paircov (native/remap.cpp) and the B+-rope BWT builder behind
+    `ropebwt -a bpr` (native/bprope.cpp), plain g++, no torch headers
+    (the index engines include native/fmindex.h);
   * the CUDA kernels (csrc/rank.cu, csrc/sw.cu), nvcc for sm_90a, plain C
     interface (ops/rank_cuda.py and ops/sw_cuda.py launch them).
 
@@ -103,7 +105,7 @@ def _nvcc_job(name: str, source: str) -> Job:
 
 
 def codec_job() -> Job:
-    return _gxx_job("rld_codec", "rld_codec.cpp")
+    return _gxx_job("rld_codec", "rld_codec.cpp", ("fmindex.h",))
 
 
 def ec_job() -> Job:
@@ -126,6 +128,10 @@ def smem_job() -> Job:
     return _gxx_job("fsmem", "smem.cpp", ("fmindex.h",))
 
 
+def seqsort_job() -> Job:
+    return _gxx_job("fseqsort", "seqsort.cpp", ("fmindex.h",))
+
+
 def remap_job() -> Job:
     return _gxx_job("fremap", "remap.cpp")
 
@@ -137,7 +143,7 @@ def bprope_job() -> Job:
 def host_jobs() -> list:
     """Every g++ library of the port."""
     return [codec_job(), ec_job(), unitig_job(), frags_job(), sequtil_job(),
-            smem_job(), remap_job(), bprope_job()]
+            smem_job(), seqsort_job(), remap_job(), bprope_job()]
 
 
 def rank_job() -> Job:
@@ -162,6 +168,27 @@ _SIGNATURES = {
                                   ctypes.POINTER(ctypes.c_uint64),
                                   ctypes.POINTER(ctypes.c_int)]),
         "frld_free": (None, [_P]),
+        "frld_enc_open": (_P, [_I, _I]),
+        # frld_enc_put(h, run_len, run_sym, n_runs) -> 0 / -9 memory
+        "frld_enc_put": (_I, [_P, _P, _P, _I64]),
+        "frld_enc_finish": (_I, [_P, ctypes.c_char_p]),
+        # fmmap_open(path, info int64[24]) -> handle or null
+        "fmmap_open": (_P, [ctypes.c_char_p, _P]),
+        # fmmap_rank6(h, ks, n, out [n, asize], n_threads)
+        "fmmap_rank6": (None, [_P, _P, _I64, _P, _I]),
+        "fmmap_close": (None, [_P]),
+        # fmblk_build(fmd, blk, n_threads) -> 0 / error code
+        "fmblk_build": (_I, [ctypes.c_char_p, ctypes.c_char_p, _I]),
+        # fmblk_info(blk, info int64[12]) -> 0 / error code
+        "fmblk_info": (_I, [ctypes.c_char_p, _P]),
+        # fappend_gaps(old_blk, blocks1, occ1, n_rows1, cnt1, n_seqs1,
+        #              n_seqs0, pos_out, n_threads) -> 0 / error code
+        "fappend_gaps": (_I, [ctypes.c_char_p, _P, _P, _I64, _P, _I64, _I64,
+                              _P, _I]),
+        "fappend_sort": (None, [_P, _I64]),
+        # fappend_interleave(old_fmd, bwt1, pos_sorted, n1, out, sbits)
+        "fappend_interleave": (_I, [ctypes.c_char_p, _P, _P, _I64,
+                                    ctypes.c_char_p, _I]),
     },
     "fec": {
         # fec_create(w, suf_len, keys u32*, vals u8*, class_offsets i64*)
@@ -184,6 +211,11 @@ _SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P, _P, _P, _P, _I, _P, _I, _P, _P]),
         "funitig_free": (None, [_P]),
+        # funitig_run(blocks, occ, n_rows, cnt, n_seqs, min_match, sorted,
+        #             n_threads, out_len*) -> malloc'd MAG text
+        "funitig_run": (_P, [_P, _P, _I64, _P, _I64, _I, _P, _I, _P]),
+        # funitig_run_blk(blk, min_match, sorted, n_threads, out_len*)
+        "funitig_run_blk": (_P, [ctypes.c_char_p, _I, _P, _I, _P]),
     },
     "ffrags": {
         # fbuild_text(seqs, offsets, n_reads, both_strands, trim_pal, out)
@@ -205,7 +237,21 @@ _SIGNATURES = {
         #           n_queries, self_match, counts*, total*) -> int64 [total, 5]
         "fsmem_all": (_P, [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I, _P,
                            _P]),
+        # fsmem_all_blk(blk, queries, offsets, n_queries, self_match,
+        #               counts*, total*)
+        "fsmem_all_blk": (_P, [ctypes.c_char_p, _P, _P, _I64, _I, _P, _P]),
+        # fec_collect(blocks, occ, n_rows, cnt, n_seqs, w, min_occ,
+        #             n_threads, counts int64[3]) -> int64 [n, 3]
+        "fec_collect": (_P, [_P, _P, _I64, _P, _I64, _I, _I, _I, _P]),
+        # fec_collect_blk(blk, w, min_occ, n_threads, counts int64[3])
+        "fec_collect_blk": (_P, [ctypes.c_char_p, _I, _I, _I, _P]),
         "fsmem_free": (None, [_P]),
+    },
+    "fseqsort": {
+        # fseqsort(blocks, occ, n_rows, cnt, n_seqs, sorted, n_threads)
+        "fseqsort": (_I, [_P, _P, _I64, _P, _I64, _P, _I]),
+        # fseqsort_blk(blk, sorted, n_threads) -> 0 / -1
+        "fseqsort_blk": (_I, [ctypes.c_char_p, _P, _I]),
     },
     "fremap": {
         "fpaircov_create": (_P, [_I64, _I64]),
@@ -270,7 +316,7 @@ def get_ec_lib() -> ctypes.CDLL:
 
 
 def get_unitig_lib() -> ctypes.CDLL:
-    """The unitig stitch (native/unitig.cpp), built on first use."""
+    """The unitig walk and stitch (native/unitig.cpp), built on first use."""
     return load(unitig_job)
 
 
@@ -285,8 +331,14 @@ def get_sequtil_lib() -> ctypes.CDLL:
 
 
 def get_smem_lib() -> ctypes.CDLL:
-    """The long-query SMEM engine (native/smem.cpp), built on first use."""
+    """The SMEM engine and the collect walk (native/smem.cpp), built on
+    first use."""
     return load(smem_job)
+
+
+def get_seqsort_lib() -> ctypes.CDLL:
+    """The seqsort walk (native/seqsort.cpp), built on first use."""
+    return load(seqsort_job)
 
 
 def get_remap_lib() -> ctypes.CDLL:

@@ -7,18 +7,30 @@
 // rld.h:77-115); in memory / on device we use dense blocked occ tables instead.
 // The codec is written as a fresh C++ streaming encoder/decoder; only the byte
 // format is shared with the reference.  This file is the port's own copy of
-// the encoder, the decoder and their file entry points from
-// fermi_tpu/native/rld_codec.cpp; it includes no header of that package and
-// builds alone with `g++ -O2 -shared -fPIC` (see native/__init__.py).
+// fermi_tpu/native/rld_codec.cpp's codec, mmap reader, record cache and
+// streaming append; it includes only this package's fmindex.h and builds
+// with `g++ -O2 -shared -fPIC` (see native/__init__.py).  A failed
+// allocation or open returns an error code (or null), which the Python side
+// raises on.
 //
 // Exposed C ABI (ctypes-friendly):
 //   frld_encode_file(run_len, run_sym, n_runs, asize, sbits, path) -> 0/err
 //   frld_decode_file(path, &run_len, &run_sym, &n_runs, mcnt_out[asize+1]) -> 0/err
 //   frld_free(ptr)
+//   frld_enc_open / frld_enc_put / frld_enc_finish: the streaming encoder
+//   fmmap_open / fmmap_rank6 / fmmap_close: rank queries in the compressed
+//     domain of a mmapped .fmd (the reference's rld_restore_mmap)
+//   fmblk_build / fmblk_info: the .fmd.blk record cache (fmindex.h)
+//   fappend_gaps / fappend_sort / fappend_interleave: build -i without
+//     expanding the old index
 //
 // Runs passed in may contain adjacent equal symbols; they are merged exactly as
 // rld_enc() would (pending-run merging), so any run decomposition of the same
 // BWT string encodes to identical bytes.
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <cstdint>
@@ -26,22 +38,13 @@
 #include <cstdlib>
 #include <cstring>
 #include <thread>
+#include <new>
 #include <vector>
 #include <string>
 
-namespace {
+#include "fmindex.h"
 
-// checked malloc: a null return (with nonzero size) names the requesting
-// site and size, then aborts
-void* fx_malloc(size_t bytes, const char* what) {
-  void* p = malloc(bytes);
-  if (!p && bytes) {
-    fprintf(stderr, "[E::%s] out of memory allocating %zu bytes\n", what,
-            bytes);
-    abort();
-  }
-  return p;
-}
+namespace {
 
 constexpr int kSuperBits = 23;                    // words per superblock = 2^23
 constexpr uint64_t kSuperWords = 1ull << kSuperBits;
@@ -371,13 +374,21 @@ class RldDecoder {
       return 0;
     }
     std::vector<RunBuf> bufs(T);
+    std::vector<char> oom(T, 0);
     std::vector<std::thread> th;
     for (int t = 0; t < T; ++t)
       th.emplace_back([&, t] {
         uint64_t b0 = n_blks * t / T, b1 = n_blks * (t + 1) / T;
-        decode_range(words, b0 * ssize, b1 * ssize, asize, sbits, &bufs[t]);
+        try {
+          decode_range(words, b0 * ssize, b1 * ssize, asize, sbits,
+                       &bufs[t]);
+        } catch (const std::bad_alloc&) {
+          oom[t] = 1;
+        }
       });
     for (auto& x : th) x.join();
+    for (char o : oom)
+      if (o) return -9;
     size_t total = 0;
     for (auto& b : bufs) total += b.sym.size();
     out->run_len.reserve(total);
@@ -398,6 +409,172 @@ class RldDecoder {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Mmapped compressed-domain index (reference rld_restore_mmap semantics,
+// rld.c:327-346 + rld_locate_blk/rld_rank1a rld.c:352-446): rank queries walk
+// the delta-coded blocks directly through the sampled frame index, so a
+// bigger-than-RAM .fmd can be queried with RSS bounded by the touched pages.
+// Fresh implementation over the same on-disk format as RldEncoder above.
+// ---------------------------------------------------------------------------
+
+struct FmmapIndex {
+  int fd = -1;
+  const uint64_t* mem = nullptr;
+  size_t map_len = 0;
+  int asize = 0, asize1 = 0, sbits = 0, ssize = 0, abits = 0, ibits = 0;
+  int hdr16 = 0, hdr32 = 0;
+  uint64_t n_bytes = 0, n_frames = 0;
+  const uint64_t* words = nullptr;  // payload (linear superblock concat)
+  const uint64_t* frame = nullptr;  // n_frames x asize1
+  std::vector<uint64_t> cnt;        // cumulative counts (C array), asize1
+  std::vector<uint64_t> mcnt;       // [0]=total, [1..asize]=marginals
+};
+
+// total + per-symbol counts of the block ENDING at word offset `at` (the
+// encoder writes each block's counts into the NEXT block's header; see
+// RldEncoder::next_block).
+static inline uint64_t fmmap_header(const FmmapIndex* e, uint64_t at,
+                                    uint64_t* add) {
+  const uint64_t* h = e->words + at;
+  uint32_t first = (uint32_t)(*h);
+  if (first >> 31) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(h);
+    for (int j = 1; j <= e->asize; ++j) add[j - 1] = q[j];
+    return first & 0x7fffffff;
+  }
+  const uint16_t* q = reinterpret_cast<const uint16_t*>(h);
+  for (int j = 1; j <= e->asize; ++j) add[j - 1] = q[j];
+  return q[0];
+}
+
+// Exclusive rank: counts of every symbol in BWT[0, k).
+static void fmmap_rank6_one(const FmmapIndex* e, uint64_t k, int64_t* out) {
+  for (int j = 0; j < e->asize; ++j) out[j] = 0;
+  if (k == 0) return;
+  const uint64_t kk = k - 1;  // coordinate of the last counted position
+  const uint64_t* z = e->frame + (kk >> e->ibits) * e->asize1;
+  uint64_t off = z[0];
+  uint64_t cnt[8], add[8], sum = 0;
+  for (int j = 0; j < e->asize; ++j) sum += (cnt[j] = z[j + 1]);
+  while (true) {  // seek to the block holding position kk
+    uint64_t nxt = off + e->ssize;
+    if (nxt >= e->n_bytes / 8) break;  // a corrupted index: stay inside
+    uint64_t c = fmmap_header(e, nxt, add);
+    if (sum + c > kk) break;
+    for (int j = 0; j < e->asize; ++j) cnt[j] += add[j];
+    sum += c;
+    off = nxt;
+  }
+  // decode the block at `off` until k symbols are covered
+  const uint64_t* w = e->words;
+  uint64_t blk_end_in_super = (off & (kSuperWords - 1)) + e->ssize;
+  uint64_t stail =
+      off + e->ssize - (blk_end_in_super == kSuperWords ? 2 : 1);
+  uint64_t p = off + (((uint32_t)w[off] >> 31) ? e->hdr32 : e->hdr16);
+  int r = 64;
+  uint64_t zpos = sum;
+  while (p <= stail) {  // (a corrupted block may run past its end)
+    uint64_t x =
+        w[p] << (64 - r) | (p != stail && r != 64 ? w[p + 1] >> r : 0);
+    int64_t len;
+    int width;
+    if (x >> 63 == 0) {
+      // Elias-delta: gamma(y+1) then low y bits of the length
+      int lead = __builtin_clzll(x);
+      int y = (int)(x >> (63 - 2 * lead) & ((1ull << (lead + 1)) - 1)) - 1;
+      width = 2 * lead + 1;
+      len = (int64_t)(x << width >> (64 - y) | 1ull << y);
+      width += y;
+    } else {
+      width = 1;
+      len = 1;
+    }
+    int c = (int)(x << width >> (64 - e->abits));
+    if (c >= e->asize) break;  // no such symbol: a corrupted block
+    width += e->abits;
+    if (r > width) r -= width;
+    else { ++p; r = 64 + r - width; }
+    if (zpos + (uint64_t)len >= k) { out[c] += k - zpos; break; }
+    zpos += len;
+    out[c] += len;
+  }
+  for (int j = 0; j < e->asize; ++j) out[j] += (int64_t)cnt[j];
+}
+
+// Streaming run cursor over the compressed payload of an FmmapIndex:
+// decodes blocks in order starting anywhere, using the same width-table
+// step as RldDecoder::decode_range.  Used by the blockcache builder.
+struct RunCursor {
+  const FmmapIndex* e;
+  uint64_t off, p, stail;
+  int r;
+
+  void seek_block(uint64_t block_off) {
+    off = block_off;
+    uint64_t blk_end_in_super = (off & (kSuperWords - 1)) + e->ssize;
+    stail = off + e->ssize - (blk_end_in_super == kSuperWords ? 2 : 1);
+    p = off + (((uint32_t)e->words[off] >> 31) ? e->hdr32 : e->hdr16);
+    r = 64;
+  }
+
+  // next run; returns false at end of the current block (caller advances)
+  bool next(int64_t* len, int* sym) {
+    if (p > stail) return false;  // a corrupted block ran past its end
+    const uint64_t* w = e->words;
+    uint64_t x = w[p] << (64 - r) | (p != stail && r != 64 ? w[p + 1] >> r : 0);
+    int64_t l;
+    int width;
+    if (x >> 63 == 0) {
+      width = (int)(0x333333335555779bull >> ((x >> 59) << 2) & 0xf);
+      if (width == 0xb && x >> 58 == 0) return false;  // zero padding
+      int64_t y = (int64_t)(x >> (64 - width)) - 1;
+      l = (int64_t)(x << width >> (64 - y) | 1ull << y);
+      width += (int)y;
+    } else {
+      width = 1;
+      l = 1;
+    }
+    int c = (int)(x << width >> (64 - e->abits));
+    width += e->abits;
+    if (c > e->asize) return false;  // invalid symbol: end of block
+    if (r > width) r -= width;
+    else { ++p; r = 64 + r - width; }
+    *len = l;
+    *sym = c;
+    return true;
+  }
+
+  // run iterator that transparently hops block boundaries
+  bool next_any(int64_t* len, int* sym) {
+    while (!next(len, sym)) {
+      if (off + e->ssize >= e->n_bytes / 8) return false;
+      seek_block(off + e->ssize);
+    }
+    return true;
+  }
+};
+
+// block word-offset + per-symbol counts at the start of the RLD block
+// containing symbol position s (same walk as fmmap_rank6_one's seek).
+static void fmblk_locate(const FmmapIndex* e, uint64_t s, uint64_t* off_out,
+                         uint64_t cnt_out[8]) {
+  const uint64_t* z = e->frame + (s >> e->ibits) * e->asize1;
+  uint64_t off = z[0];
+  uint64_t cnt[8] = {0}, add[8], sum = 0;
+  for (int j = 0; j < e->asize; ++j) sum += (cnt[j] = z[j + 1]);
+  while (true) {
+    uint64_t nxt = off + e->ssize;
+    if (nxt >= e->n_bytes / 8) break;  // a corrupted index: stay inside
+    uint64_t c = fmmap_header(e, nxt, add);
+    if (sum + c > s) break;
+    for (int j = 0; j < e->asize; ++j) cnt[j] += add[j];
+    sum += c;
+    off = nxt;
+  }
+  *off_out = off;
+  for (int j = 0; j < e->asize; ++j) cnt_out[j] = cnt[j];
+}
+
 }  // namespace
 
 
@@ -407,25 +584,45 @@ class RldDecoder {
 
 extern "C" {
 
+void fmmap_close(void* h);  // defined below; used by fmblk_build
+
+// 0, -1 when the file cannot be written, -9 when memory runs out
 int frld_encode_file(const int64_t* run_len, const uint8_t* run_sym,
                      int64_t n_runs, int asize, int sbits, const char* path) {
-  RldEncoder enc(asize, sbits);
-  for (int64_t i = 0; i < n_runs; ++i) enc.put(run_len[i], run_sym[i]);
-  enc.finish();
-  return enc.dump(path);
+  try {
+    RldEncoder enc(asize, sbits);
+    for (int64_t i = 0; i < n_runs; ++i) enc.put(run_len[i], run_sym[i]);
+    enc.finish();
+    return enc.dump(path);
+  } catch (const std::bad_alloc&) {
+    return -9;
+  }
 }
 
 // Decodes a .fmd (RLD\2 or raw RLE-byte) file into malloc'd run arrays.
-// mcnt_out must have room for asize+1 entries (7 for DNA). Returns 0 on success.
+// mcnt_out must have room for asize+1 entries (7 for DNA). Returns 0 on
+// success, -9 when memory runs out, else the decoder's error.
 int frld_decode_file(const char* path, int64_t** run_len, uint8_t** run_sym,
                      int64_t* n_runs, uint64_t* mcnt_out, int* asize_out) {
   DecodeResult res;
   RldDecoder dec;
-  int rc = dec.decode_file(path, &res);
+  int rc;
+  try {
+    rc = dec.decode_file(path, &res);
+  } catch (const std::bad_alloc&) {
+    return -9;
+  }
   if (rc) return rc;
   *n_runs = (int64_t)res.run_len.size();
-  *run_len = (int64_t*)fx_malloc(res.run_len.size() * sizeof(int64_t) + 1, "fread_fmd");
-  *run_sym = (uint8_t*)fx_malloc(res.run_sym.size() + 1, "fread_fmd");
+  *run_len = (int64_t*)malloc(res.run_len.size() * sizeof(int64_t) + 1);
+  *run_sym = (uint8_t*)malloc(res.run_sym.size() + 1);
+  if (!*run_len || !*run_sym) {
+    free(*run_len);
+    free(*run_sym);
+    *run_len = nullptr;
+    *run_sym = nullptr;
+    return -9;
+  }
   memcpy(*run_len, res.run_len.data(), res.run_len.size() * sizeof(int64_t));
   memcpy(*run_sym, res.run_sym.data(), res.run_sym.size());
   for (int i = 0; i <= res.asize; ++i) mcnt_out[i] = res.mcnt[i];
@@ -434,5 +631,412 @@ int frld_decode_file(const char* path, int64_t** run_len, uint8_t** run_sym,
 }
 
 void frld_free(void* p) { free(p); }
+
+// -- streaming encoder (chunked puts; lets callers write .fmd files much
+//    larger than RAM) -------------------------------------------------------
+
+// null when out of memory
+void* frld_enc_open(int asize, int sbits) {
+  try {
+    return new RldEncoder(asize, sbits);
+  } catch (const std::bad_alloc&) {
+    return nullptr;
+  }
+}
+
+// 0, or -9 when out of memory (the encoder is then unusable: finish it to
+// free it)
+int frld_enc_put(void* h, const int64_t* run_len, const uint8_t* run_sym,
+                 int64_t n_runs) {
+  RldEncoder* enc = static_cast<RldEncoder*>(h);
+  try {
+    for (int64_t i = 0; i < n_runs; ++i) enc->put(run_len[i], run_sym[i]);
+  } catch (const std::bad_alloc&) {
+    return -9;
+  }
+  return 0;
+}
+
+// writes the file and frees the encoder: 0, -1 (the file), -9 (memory)
+int frld_enc_finish(void* h, const char* path) {
+  RldEncoder* enc = static_cast<RldEncoder*>(h);
+  int rc;
+  try {
+    enc->finish();
+    rc = enc->dump(path);
+  } catch (const std::bad_alloc&) {
+    rc = -9;
+  }
+  delete enc;
+  return rc;
+}
+
+// -- mmapped compressed-domain queries --------------------------------------
+
+// info layout (int64): [0]=asize [1]=sbits [2]=ibits [3]=n_bytes [4]=n_frames
+// [5..5+asize]=cnt (cumulative, asize+1 entries) [13..13+asize]=mcnt
+// Null when the file cannot be opened or mapped, is no RLD\2 index, or
+// memory runs out.
+void* fmmap_open(const char* path, int64_t* info) {
+  int fd = open(path, O_RDONLY);
+  if (fd < 0) return nullptr;
+  off_t len = lseek(fd, 0, SEEK_END);
+  if (len < 4 * 8 + 6 * 8) { close(fd); return nullptr; }
+  void* mem = mmap(nullptr, (size_t)len, PROT_READ, MAP_PRIVATE, fd, 0);
+  if (mem == MAP_FAILED) { close(fd); return nullptr; }
+  madvise(mem, (size_t)len, MADV_RANDOM);
+  const uint64_t* m = static_cast<const uint64_t*>(mem);
+  if (memcmp(m, "RLD\2", 4) != 0) {
+    munmap(mem, (size_t)len); close(fd); return nullptr;
+  }
+  FmmapIndex* e = new (std::nothrow) FmmapIndex;
+  if (!e) { munmap(mem, (size_t)len); close(fd); return nullptr; }
+  e->fd = fd; e->mem = m; e->map_len = (size_t)len;
+  uint32_t x = reinterpret_cast<const uint32_t*>(m)[1];
+  e->asize = (int)(x >> 16); e->sbits = (int)(x & 0xffff);
+  e->asize1 = e->asize + 1;
+  e->ssize = 1 << e->sbits;
+  e->abits = floor_log2(e->asize) + 1;
+  e->hdr16 = (e->asize1 * 16 + 63) / 64;
+  e->hdr32 = (e->asize1 * 32 + 63) / 64;
+  e->n_bytes = m[2]; e->n_frames = m[3];
+  e->mcnt.assign(e->asize1, 0);
+  e->cnt.assign(e->asize1, 0);
+  uint64_t total = 0;
+  for (int i = 1; i <= e->asize; ++i) {
+    e->mcnt[i] = m[4 + i - 1];
+    total += e->mcnt[i];
+    e->cnt[i] = e->cnt[i - 1] + e->mcnt[i];
+  }
+  e->mcnt[0] = total;
+  e->words = m + 4 + e->asize;
+  e->frame = e->words + e->n_bytes / 8;
+  uint64_t n_blks = e->n_bytes * 8 / 64 / e->ssize + 1;
+  e->ibits = floor_log2(total / n_blks) + 4;
+  info[0] = e->asize; info[1] = e->sbits; info[2] = e->ibits;
+  info[3] = (int64_t)e->n_bytes; info[4] = (int64_t)e->n_frames;
+  for (int i = 0; i <= e->asize; ++i) info[5 + i] = (int64_t)e->cnt[i];
+  for (int i = 0; i <= e->asize; ++i) info[13 + i] = (int64_t)e->mcnt[i];
+  return e;
+}
+
+// Build the blocked record cache (.fmd.blk) for a compressed .fmd,
+// streaming: the fmd stays an evictable read-only mapping, records are
+// emitted through a small per-thread buffer, so peak RSS is O(buffers)
+// regardless of index size.  Layout per fermi_native::Index / BlkHeader
+// (fmindex.h); the cache is the out-of-core `-M` form every native engine
+// can mmap (reference counterpart: rld_restore_mmap, rld.c:327-346).
+int fmblk_build(const char* fmd_path, const char* blk_path, int n_threads) {
+  using fermi_native::BlkHeader;
+  using fermi_native::kBlkHeaderBytes;
+  using fermi_native::kBlkMagic;
+  using fermi_native::kBlock;
+  int64_t info[24];
+  FmmapIndex* e = static_cast<FmmapIndex*>(fmmap_open(fmd_path, info));
+  if (!e) return -1;
+  madvise(const_cast<uint64_t*>(e->mem), e->map_len, MADV_SEQUENTIAL);
+  const uint64_t total = e->mcnt[0];
+  const int64_t n_blocks = (int64_t)((total + kBlock - 1) / kBlock);
+  const int64_t n_rows = n_blocks + 1;
+  const bool wide = (int64_t)total > (int64_t)UINT32_MAX;
+  const int64_t rstride = wide ? 256 : 192;
+
+  BlkHeader hdr = {};
+  memcpy(hdr.magic, kBlkMagic, 8);
+  hdr.rstride = rstride;
+  hdr.n_rows = n_rows;
+  hdr.total = (int64_t)total;
+  hdr.n_seqs = (int64_t)e->mcnt[1];
+  for (int i = 0; i < 7; ++i) hdr.cnt[i] = (int64_t)e->cnt[i];
+  hdr.cnt[7] = hdr.cnt[6];
+  hdr.wide = wide;
+
+  int fd = open(blk_path, O_RDWR | O_CREAT | O_TRUNC, 0644);
+  if (fd < 0) { fmmap_close(e); return -2; }
+  uint8_t page[kBlkHeaderBytes] = {0};
+  memcpy(page, &hdr, sizeof hdr);
+  if (pwrite(fd, page, kBlkHeaderBytes, 0) != (ssize_t)kBlkHeaderBytes ||
+      ftruncate(fd, kBlkHeaderBytes + rstride * n_rows) != 0) {
+    close(fd);
+    fmmap_close(e);
+    return -3;
+  }
+
+  if (n_threads < 1) n_threads = 1;
+  unsigned hw = std::thread::hardware_concurrency();
+  if (hw && n_threads > (int)hw) n_threads = (int)hw;
+  int64_t rows_per = (n_rows + n_threads - 1) / n_threads;
+  std::vector<int> rcs(n_threads, 0);
+  auto body = [&](int t) {
+    int64_t r0 = t * rows_per;
+    int64_t r1 = std::min(n_rows, r0 + rows_per);
+    if (r0 >= r1) return;
+    const int64_t kBufRecs = 8192;  // ~1.5-2 MB write buffer
+    std::vector<uint8_t> buf((size_t)kBufRecs * rstride);
+    int64_t buf_row0 = r0, buf_n = 0;
+    auto flush = [&]() -> bool {
+      if (!buf_n) return true;
+      off_t at = kBlkHeaderBytes + (off_t)buf_row0 * rstride;
+      ssize_t want = (ssize_t)(buf_n * rstride);
+      bool ok = pwrite(fd, buf.data(), want, at) == want;
+      buf_row0 += buf_n;
+      buf_n = 0;
+      return ok;
+    };
+    uint64_t s0 = (uint64_t)r0 * kBlock;
+    uint64_t occ[8] = {0};
+    RunCursor cur{e, 0, 0, 0, 64};
+    int64_t run_len = 0;
+    int run_sym = 6;
+    uint64_t produced = s0;  // symbols consumed from the stream so far
+    if (s0 < total) {
+      uint64_t off;
+      fmblk_locate(e, s0, &off, occ);
+      uint64_t before = 0;
+      for (int j = 0; j < e->asize; ++j) before += occ[j];
+      cur.seek_block(off);
+      // skip into the middle of the located block
+      uint64_t skip = s0 - before;
+      while (skip) {
+        if (!cur.next_any(&run_len, &run_sym)) { rcs[t] = -4; return; }
+        if ((uint64_t)run_len > skip) {
+          occ[run_sym] += skip;
+          run_len -= (int64_t)skip;
+          skip = 0;
+        } else {
+          occ[run_sym] += (uint64_t)run_len;
+          skip -= (uint64_t)run_len;
+          run_len = 0;
+        }
+      }
+    }
+    for (int64_t row = r0; row < r1; ++row) {
+      uint8_t* R = buf.data() + (size_t)buf_n * rstride;
+      memset(R, 0, (size_t)rstride);
+      // occ at row start
+      if (wide) {
+        uint64_t* o = (uint64_t*)(R + kBlock);
+        for (int j = 0; j < 6; ++j) o[j] = occ[j];
+      } else {
+        uint32_t* o = (uint32_t*)(R + kBlock);
+        for (int j = 0; j < 6; ++j) o[j] = (uint32_t)occ[j];
+      }
+      int fill = (int)std::min<uint64_t>(
+          kBlock, total > produced ? total - produced : 0);
+      int i = 0;
+      while (i < fill) {
+        if (run_len == 0) {
+          if (!cur.next_any(&run_len, &run_sym)) { rcs[t] = -5; return; }
+        }
+        int take = (int)std::min<int64_t>(run_len, fill - i);
+        memset(R + i, run_sym, take);
+        occ[run_sym] += (uint64_t)take;
+        run_len -= take;
+        i += take;
+      }
+      if (fill < kBlock) memset(R + fill, 6, kBlock - fill);
+      produced += (uint64_t)fill;
+      // sub-block counts over bytes [0,32s)
+      uint8_t* dst = R + kBlock + (wide ? 48 : 24);
+      uint8_t c[8] = {0};
+      for (int s = 0; s < 3; ++s) {
+        for (int k = s * 32; k < (s + 1) * 32; ++k) ++c[R[k]];
+        for (int j = 0; j < 6; ++j) dst[s * 6 + j] = c[j];
+      }
+      if (++buf_n == kBufRecs && !flush()) { rcs[t] = -6; return; }
+    }
+    if (!flush()) rcs[t] = -6;
+  };
+  auto work = [&](int t) {
+    try {
+      body(t);
+    } catch (const std::bad_alloc&) {
+      rcs[t] = -9;
+    }
+  };
+  std::vector<std::thread> th;
+  for (int t = 0; t < n_threads; ++t) th.emplace_back(work, t);
+  for (auto& x : th) x.join();
+  close(fd);
+  fmmap_close(e);
+  for (int rc : rcs)
+    if (rc) return rc;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Streaming fm_append (reference merge.c:139-209, fermi.1:253-261): append a
+// new text block's BWT to an existing index at the reference's memory model —
+// the old index is never expanded.  Rank walks go through the mmapped .fmd.blk
+// record cache (file-backed, evictable); the final pass streams old runs +
+// insertions straight into the RLD encoder.
+// ---------------------------------------------------------------------------
+
+// For every symbol of the new block's BWT (given as a dense blocked index),
+// emit its merged position: backward-walk every new sequence through both
+// indexes (merge.c:31-66 semantics; e0 = old, via its .fmd.blk cache).
+// pos_out must hold n1 = cnt1[6] entries.  Returns 0, or -1 (the old
+// index's cache), -2 (a symbol placed other than once), -9 (memory).
+int fappend_gaps(const char* old_blk_path, const uint8_t* blocks1,
+                 const int64_t* occ1, int64_t n_rows1, const int64_t* cnt1,
+                 int64_t n_seqs1, int64_t n_seqs0, int64_t* pos_out,
+                 int n_threads) {
+  using fermi_native::Index;
+  Index e0;
+  if (e0.setup_blk(old_blk_path)) return -1;
+  Index e1;
+  if (e1.setup(blocks1, occ1, n_rows1, cnt1, n_seqs1)) return -9;
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> th;
+  // per-seq emission count = seq_len + 1; reserve exact space by walking
+  // seq lengths is as costly as the walk, so emit into per-thread buffers
+  // and stitch (n1 total entries, order irrelevant: caller sorts)
+  std::vector<std::vector<int64_t>> bufs(n_threads);
+  std::vector<char> oom(n_threads, 0);
+  auto work = [&](int t) {
+    auto& buf = bufs[t];
+    int64_t r[6];
+    try {
+      for (int64_t x = t; x < n_seqs1; x += n_threads) {
+        int64_t k = x, i = n_seqs0 - 1;
+        buf.push_back(k + i + 1);
+        while (true) {
+          int c = e1.sym_at(k);
+          if (c == 0) break;
+          e1.rank6(k, r);
+          k = e1.cnt[c] + r[c];
+          e0.rank6(i + 1, r);
+          i = e0.cnt[c] + r[c] - 1;
+          buf.push_back(k + i + 1);
+        }
+      }
+    } catch (const std::bad_alloc&) {
+      oom[t] = 1;
+    }
+  };
+  for (int t = 0; t < n_threads; ++t) th.emplace_back(work, t);
+  for (auto& x : th) x.join();
+  int64_t n = 0;
+  for (int t = 0; t < n_threads; ++t) {
+    if (oom[t]) return -9;
+    n += (int64_t)bufs[t].size();
+  }
+  if (n != cnt1[6]) return -2;  // every new symbol must be placed once
+  int64_t at = 0;
+  for (auto& b : bufs) {
+    memcpy(pos_out + at, b.data(), b.size() * sizeof(int64_t));
+    at += (int64_t)b.size();
+  }
+  return 0;
+}
+
+// the merged positions in ascending order
+void fappend_sort(int64_t* pos, int64_t n) { std::sort(pos, pos + n); }
+
+// Stream-interleave: decode the old .fmd runs once, inserting the new BWT
+// symbols at the (sorted, unique) merged positions, encoding straight to
+// out_path (merge.c:100-137's rld_dec_enc as a run-level copy).  Returns 0,
+// or -1 (the old index), -2 / -3 (its runs end early / late), -9 (memory),
+// or the encoder's file error.
+static int fappend_interleave_impl(const char* old_fmd, const uint8_t* bwt1,
+                                   const int64_t* pos_sorted, int64_t n1,
+                                   const char* out_path, int sbits) {
+  int64_t info[24];
+  FmmapIndex* e = static_cast<FmmapIndex*>(fmmap_open(old_fmd, info));
+  if (!e) return -1;
+  struct Closer {
+    FmmapIndex* e;
+    ~Closer() { fmmap_close(e); }
+  } closer{e};
+  madvise(const_cast<uint64_t*>(e->mem), e->map_len, MADV_SEQUENTIAL);
+  const int64_t n0 = (int64_t)e->mcnt[0];
+  RldEncoder enc(e->asize, sbits);
+  RunCursor cur{e, 0, 0, 0, 64};
+  cur.seek_block(0);
+  int64_t run_len = 0;
+  int run_sym = 0;
+  int64_t consumed = 0;  // old symbols copied so far
+  int64_t g = 0;         // merged symbols emitted so far
+  for (int64_t j = 0; j <= n1; ++j) {
+    // old symbols between this insertion and the previous one
+    int64_t need = (j < n1 ? pos_sorted[j] : n0 + n1) - g;
+    while (need > 0) {
+      if (run_len == 0 && !cur.next_any(&run_len, &run_sym)) return -2;
+      int64_t take = run_len < need ? run_len : need;
+      enc.put(take, run_sym);
+      run_len -= take;
+      need -= take;
+      g += take;
+      consumed += take;
+    }
+    if (j < n1) {
+      enc.put(1, bwt1[j]);
+      ++g;
+    }
+  }
+  if (consumed != n0) return -3;
+  enc.finish();
+  return enc.dump(out_path);
+}
+
+int fappend_interleave(const char* old_fmd, const uint8_t* bwt1,
+                       const int64_t* pos_sorted, int64_t n1,
+                       const char* out_path, int sbits) {
+  try {
+    return fappend_interleave_impl(old_fmd, bwt1, pos_sorted, n1, out_path,
+                                   sbits);
+  } catch (const std::bad_alloc&) {
+    return -9;
+  }
+}
+
+// read a .fmd.blk header: info[0]=n_rows [1]=total [2]=n_seqs [3]=wide
+// [4..11]=cnt8
+int fmblk_info(const char* path, int64_t* info) {
+  using fermi_native::BlkHeader;
+  using fermi_native::kBlkMagic;
+  FILE* fp = fopen(path, "rb");
+  if (!fp) return -1;
+  BlkHeader hdr;
+  if (fread(&hdr, sizeof hdr, 1, fp) != 1 ||
+      memcmp(hdr.magic, kBlkMagic, 8) != 0) {
+    fclose(fp);
+    return -2;
+  }
+  fclose(fp);
+  info[0] = hdr.n_rows;
+  info[1] = hdr.total;
+  info[2] = hdr.n_seqs;
+  info[3] = hdr.wide;
+  for (int i = 0; i < 8; ++i) info[4 + i] = hdr.cnt[i];
+  return 0;
+}
+
+void fmmap_close(void* h) {
+  FmmapIndex* e = static_cast<FmmapIndex*>(h);
+  munmap(const_cast<uint64_t*>(e->mem), e->map_len);
+  close(e->fd);
+  delete e;
+}
+
+// out[i*asize .. i*asize+asize) = exclusive rank of every symbol at ks[i]
+void fmmap_rank6(void* h, const int64_t* ks, int64_t n, int64_t* out,
+                 int n_threads) {
+  FmmapIndex* e = static_cast<FmmapIndex*>(h);
+  if (n_threads < 1) n_threads = 1;
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i)
+      fmmap_rank6_one(e, (uint64_t)ks[i], out + i * e->asize);
+  };
+  if (n_threads == 1 || n < 256) { work(0, n); return; }
+  std::vector<std::thread> ths;
+  int64_t per = (n + n_threads - 1) / n_threads;
+  for (int t = 0; t < n_threads; ++t) {
+    int64_t lo = t * per, hi = std::min(n, lo + per);
+    if (lo >= hi) break;
+    ths.emplace_back(work, lo, hi);
+  }
+  for (auto& t : ths) t.join();
+}
 
 }  // extern "C"

@@ -1,28 +1,38 @@
-// unitig.cpp — the host stitch of the bulk-link unitig path.
+// unitig.cpp — native unitig construction: the host walk and the stitch of
+// the bulk-link path.
 //
-// The port's own copy of the stitch in fermi_tpu/native/unitig.cpp
-// (Builder, Stitcher, funitig_stitch): standard library and this package's
-// fmindex.h only; it builds with `g++ -O2 -shared -fPIC` (see
-// native/__init__.py).  Pass 2 of the bulk-link reformulation
-// (algos/unitig_bulk.py) replays unitig1 / unitig_unidir (reference
-// unitig.c:227-357) in exact t=1 seed order over per-sequence link records
-// computed on the device (search/unitig_links.py).  Index queries remain
-// only for check_left verification, redo-flagged rows (device buffer
-// overflow) and the rare member-miss fallback, all served by the Builder's
-// exact get_nei, so those paths are byte-exact by construction.  The MAG
-// text equals `fermi unitig -t 1`.
+// The port's own copy of fermi_tpu/native/unitig.cpp: standard library and
+// this package's fmindex.h only; it builds with `g++ -O2 -shared -fPIC`
+// (see native/__init__.py).  A failed allocation or an index that cannot be
+// mapped returns null, which the caller raises on.
 //
-// Not copied: the host unitig engines funitig_run / funitig_run_blk (the
-// sequential walk, its runahead helpers, the `-t N` threaded walk and the
-// mmapped `-M` index; ROADMAP queue 1 item 3c).
+// funitig_run / funitig_run_blk: the whole walk on the host, over resident
+// arrays or a mmapped .fmd.blk record cache (the `-M` path), with the same
+// control flow as reference unitig.c (fm6_get_nei:93-179,
+// unitig_unidir:227-262, unitig1:274-317).  One thread gives the MAG text
+// of `fermi unitig -t 1`; N threads the reference's `-t N` semantics
+// (stride workers over shared atomic bitmaps, unitig.c:378-407).
+//
+// funitig_stitch: pass 2 of the bulk-link reformulation
+// (algos/unitig_bulk.py) replays unitig1 / unitig_unidir in exact t=1 seed
+// order over per-sequence link records computed on the device
+// (search/unitig_links.py).  Index queries remain only for check_left
+// verification, redo-flagged rows (device buffer overflow) and the rare
+// member-miss fallback, all served by the Builder's exact get_nei, so those
+// paths are byte-exact by construction.  The MAG text equals
+// `fermi unitig -t 1`.
 
 #include <algorithm>
+#include <atomic>
 #include <cassert>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
+#include <new>
 #include <string>
+#include <thread>
 #include <vector>
 
 #include "fmindex.h"
@@ -32,18 +42,6 @@ namespace {
 using fermi_native::comp6;
 using fermi_native::Index;
 using fermi_native::kBlockBits;
-
-// checked malloc: a null return (with nonzero size) names the requesting
-// site and size, then aborts
-void* fx_malloc(size_t bytes, const char* what) {
-  void* p = malloc(bytes);
-  if (!p && bytes) {
-    fprintf(stderr, "[E::%s] out of memory allocating %zu bytes\n", what,
-            bytes);
-    abort();
-  }
-  return p;
-}
 
 struct Intv {
   int64_t kb, kf, sz;
@@ -87,8 +85,10 @@ struct Ext6 {
   int64_t KB[6], KF[6], SZ[6];
 };
 
-// the walk's used / bend / visited marks, one byte per stored sequence
-struct Bits {
+// used/bend/visited bitmap policies: one byte per stored sequence.  The
+// sequential walk and the stitch own plain byte arrays; the workers of the
+// threaded walk share one set of relaxed-atomic arrays.
+struct PlainBits {
   std::vector<uint8_t> used_, bend_, visited_;
   void init(int64_t n) {
     used_.assign(n, 0);
@@ -101,8 +101,44 @@ struct Bits {
   inline void set_bend(int64_t i) { bend_[i] = 1; }
   inline bool visited_at(int64_t i) const { return visited_[i]; }
   inline void set_visited(int64_t i) { visited_[i] = 1; }
+  inline bool test_and_set_visited(int64_t i) {
+    bool o = visited_[i];
+    visited_[i] = 1;
+    return o;
+  }
 };
 
+struct SharedAtomicBits {
+  std::atomic<uint8_t>* used_ = nullptr;  // non-owning, shared by helpers
+  std::atomic<uint8_t>* bend_ = nullptr;
+  std::atomic<uint8_t>* visited_ = nullptr;
+  void init(int64_t) {}
+  inline bool used_at(int64_t i) const {
+    return used_[i].load(std::memory_order_relaxed);
+  }
+  inline void set_used(int64_t i) {
+    used_[i].store(1, std::memory_order_relaxed);
+  }
+  inline bool bend_at(int64_t i) const {
+    return bend_[i].load(std::memory_order_relaxed);
+  }
+  inline void set_bend(int64_t i) {
+    bend_[i].store(1, std::memory_order_relaxed);
+  }
+  inline bool visited_at(int64_t i) const {
+    return visited_[i].load(std::memory_order_relaxed);
+  }
+  inline void set_visited(int64_t i) {
+    visited_[i].store(1, std::memory_order_relaxed);
+  }
+  // atomic test-and-set for the threaded walk's dedupe (the reference's
+  // __sync_fetch_and_or on `visited`, unitig.c:336-339)
+  inline bool test_and_set_visited(int64_t i) {
+    return visited_[i].exchange(1, std::memory_order_relaxed);
+  }
+};
+
+template <class Bits>
 struct Builder {
   const Index& e;
   int min_match;
@@ -114,8 +150,8 @@ struct Builder {
   std::vector<uint8_t> hasA, hasB;
   std::vector<int64_t> cs0;  // [j*4 + (c-1)]: sentinel count after bwd ext
 
-  Builder(const Index& idx, int mm, const uint64_t* srt)
-      : e(idx), min_match(mm), sorted(srt) {
+  Builder(const Index& idx, int mm, const uint64_t* srt, Bits b = Bits())
+      : e(idx), min_match(mm), sorted(srt), bits(b) {
     bits.init(e.n_seqs);
   }
 
@@ -168,6 +204,24 @@ struct Builder {
     }
     std::reverse(out_list.begin(), out_list.end());
     return ik;
+  }
+
+  // fm6_is_contained (unitig.c:77-91)
+  int is_contained(const std::vector<uint8_t>& s, Intv* intv0,
+                   std::vector<Intv>& ovlp) {
+    assert((int)s.size() > min_match);
+    Intv ik = overlap_intv(s, (int)s.size() - 1, false, false, ovlp);
+    int ret = 0;
+    int64_t KB[6], KF[6], SZ[6];
+    extend6(e, ik.kb, ik.kf, ik.sz, true, KB, KF, SZ);
+    assert(SZ[0]);
+    if (ik.sz != SZ[0]) ret = -1;
+    Intv ik2{KB[0], KF[0], SZ[0], 0};
+    extend6(e, ik2.kb, ik2.kf, ik2.sz, false, KB, KF, SZ);
+    assert(SZ[0]);
+    if (ik2.sz != SZ[0]) ret = -1;
+    *intv0 = {KB[0], KF[0], SZ[0], 0};
+    return ret;
   }
 
   // fm6_get_nei (unitig.c:93-179); s may grow
@@ -368,6 +422,110 @@ struct Builder {
     return nei2.size() > 1 ? -1 : 0;
   }
 
+  // unitig_unidir (unitig.c:227-262)
+  int unidir(std::vector<uint8_t>& s, std::vector<uint8_t>& cov, int beg0,
+             int64_t k0, int64_t* end, bool* is_loop, std::vector<Intv>& nei,
+             std::vector<Intv> prev) {
+    int beg = beg0, ori_l = (int)s.size(), n_reads = 0;
+    *is_loop = false;
+    nei.clear();
+    while (true) {
+      int rbeg = get_nei(beg, s, nei, prev);
+      prev.clear();
+      if (rbeg < 0) break;
+      if (nei.size() > 1) {
+        bits.set_bend(*end);
+        break;
+      }
+      int64_t k = nei[0].kb;
+      if (k == *end) break;
+      if (bits.bend_at(k) || check_left(beg, rbeg, s, nei) < 0) {
+        bits.set_bend(k);
+        break;
+      }
+      if (k == k0) {
+        *is_loop = true;
+        break;
+      }
+      if (nei[0].kf == *end) {
+        nei.clear();
+        break;
+      }
+      *end = nei[0].kf;
+      set_bits(nei[0].kb, nei[0].kf, nei[0].sz);
+      ++n_reads;
+      while (cov.size() < s.size()) cov.push_back('"');
+      cov.resize(s.size());
+      for (int i = rbeg; i < ori_l; ++i)
+        if (cov[i] != '~') ++cov[i];
+      for (size_t i = ori_l; i < s.size(); ++i) cov[i] = '"';
+      beg = rbeg;
+      ori_l = (int)s.size();
+    }
+    s.resize(ori_l);
+    cov.resize(ori_l);
+    return n_reads;
+  }
+
+  void retrieve(int64_t x, std::vector<uint8_t>* s, int64_t* final_k) {
+    int64_t k = x;
+    s->clear();
+    while (true) {
+      int64_t r[6];
+      e.rank6(k, r);
+      int c = e.sym_at(k);
+      k = e.cnt[c] + r[c];
+      if (c == 0) break;
+      s->push_back((uint8_t)c);
+    }
+    std::reverse(s->begin(), s->end());
+    *final_k = k;
+  }
+
+  // unitig1 (unitig.c:274-317); returns false on skip
+  bool unitig1(int64_t seed, std::vector<uint8_t>& s, std::vector<uint8_t>& cov,
+               int64_t k_out[2], std::vector<Intv> nei_out[2], int* nsr) {
+    if (sorted && bits.used_at(seed)) return false;
+    int64_t k;
+    retrieve(seed, &s, &k);
+    int seed_len = (int)s.size();
+    if ((int)s.size() <= min_match) return false;
+    if (!sorted && bits.used_at(k)) return false;
+    Intv intv0;
+    std::vector<Intv> ovlp;
+    int ret = is_contained(s, &intv0, ovlp);
+    set_bits(intv0.kb, intv0.kf, intv0.sz);
+    if (ret < 0) return false;
+    *nsr = 1;
+    cov.assign(s.size(), '"');
+    k_out[0] = intv0.kf;
+    k_out[1] = intv0.kb;
+    nei_out[0].clear();
+    nei_out[1].clear();
+    std::vector<Intv> nei;
+    if (!ovlp.empty()) {
+      bool is_loop;
+      int nr = unidir(s, cov, 0, intv0.kb, &k_out[0], &is_loop, nei, ovlp);
+      *nsr += nr;
+      nei_out[0] = nei;
+      if (is_loop) {
+        nei_out[1].clear();
+        nei_out[1].push_back({k_out[0], 0, 0, nei[0].info});
+        return true;
+      }
+    }
+    // reverse complement for the other direction
+    std::reverse(s.begin(), s.end());
+    for (auto& c : s) c = (uint8_t)comp6(c);
+    std::reverse(cov.begin(), cov.end());
+    bool is_loop;
+    int nr = unidir(s, cov, (int)s.size() - seed_len, intv0.kf, &k_out[1],
+                    &is_loop, nei, {});
+    *nsr += nr;
+    nei_out[1] = nei;
+    return true;
+  }
+
   // one MAG record (reference mag.c:149-174)
   void write_mag(const std::vector<uint8_t>& s, const std::vector<uint8_t>& cov,
                  const int64_t k_out[2], const std::vector<Intv> nei_out[2],
@@ -397,7 +555,132 @@ struct Builder {
     for (auto c : cov) out += (char)c;
     out += "\n";
   }
+
+  // the reference's t=1 seed order (unitig.c:332-346)
+  void run() {
+    int64_t n1 = e.n_seqs;
+    std::vector<uint8_t> s, cov;
+    for (int64_t j = 0; j <= (n1 >> 2); ++j) {
+      for (int64_t i = (j << 2) | 1; i < (j << 2) + 4 && i < n1; i += 2) {
+        int64_t k_out[2];
+        std::vector<Intv> nei_out[2];
+        int nsr = 0;
+        if (!unitig1(i, s, cov, k_out, nei_out, &nsr)) continue;
+        if (bits.visited_at(k_out[0]) || bits.visited_at(k_out[1])) continue;
+        bits.set_visited(k_out[0]);
+        bits.set_visited(k_out[1]);
+        write_mag(s, cov, k_out, nei_out, nsr);
+      }
+    }
+  }
+
+  // stride worker for the threaded mode (reference unitig_core seed order,
+  // unitig.c:332-346); records the output length after every j block so
+  // the caller can gather blocks in global j order.
+  void run_strided(int64_t start, int64_t step, std::vector<size_t>* marks) {
+    int64_t n1 = e.n_seqs;
+    std::vector<uint8_t> s, cov;
+    for (int64_t j = start; j <= (n1 >> 2); j += step) {
+      for (int64_t i = (j << 2) | 1; i < (j << 2) + 4 && i < n1; i += 2) {
+        int64_t k_out[2];
+        std::vector<Intv> nei_out[2];
+        int nsr = 0;
+        if (!unitig1(i, s, cov, k_out, nei_out, &nsr)) continue;
+        // the reference's fetch_or order (unitig.c:336-339)
+        if (bits.test_and_set_visited(k_out[0])) continue;
+        if (bits.test_and_set_visited(k_out[1])) continue;
+        write_mag(s, cov, k_out, nei_out, nsr);
+      }
+      marks->push_back(out.size());
+    }
+  }
 };
+
+// Threaded walk matching the reference's `unitig -t N` semantics
+// (unitig.c:378-407): stride workers share relaxed-atomic used/bend/visited
+// bitmaps, so which unitig claims a boundary read under contention is
+// timing-dependent, the same nondeterminism the reference accepts with
+// threads.  Unlike the reference (workers fputs-interleave stdout), output
+// blocks are gathered in deterministic global j order.  Null when memory
+// runs out.
+static char* unitig_threaded(const Index& idx, int min_match,
+                             const uint64_t* sorted, int T,
+                             int64_t* out_len) {
+  int64_t n_seqs = idx.n_seqs;
+  std::unique_ptr<std::atomic<uint8_t>[]> au(
+      new (std::nothrow) std::atomic<uint8_t>[n_seqs]);
+  std::unique_ptr<std::atomic<uint8_t>[]> ab(
+      new (std::nothrow) std::atomic<uint8_t>[n_seqs]);
+  std::unique_ptr<std::atomic<uint8_t>[]> av(
+      new (std::nothrow) std::atomic<uint8_t>[n_seqs]);
+  if (!au || !ab || !av) return nullptr;
+  for (int64_t i = 0; i < n_seqs; ++i) {
+    au[i].store(0, std::memory_order_relaxed);
+    ab[i].store(0, std::memory_order_relaxed);
+    av[i].store(0, std::memory_order_relaxed);
+  }
+  SharedAtomicBits sb{au.get(), ab.get(), av.get()};
+  std::vector<std::unique_ptr<Builder<SharedAtomicBits>>> bs;
+  for (int t = 0; t < T; ++t)
+    bs.emplace_back(new Builder<SharedAtomicBits>(idx, min_match, sorted, sb));
+  std::vector<std::vector<size_t>> marks(T);
+  std::atomic<bool> oom(false);
+  std::vector<std::thread> th;
+  for (int t = 0; t < T; ++t)
+    th.emplace_back([&, t] {
+      try {
+        bs[t]->run_strided(t, T, &marks[t]);
+      } catch (const std::bad_alloc&) {
+        oom = true;
+      }
+    });
+  for (auto& x : th) x.join();
+  if (oom) return nullptr;
+  size_t total = 0;
+  for (int t = 0; t < T; ++t) total += bs[t]->out.size();
+  char* p = (char*)malloc(total + 1);
+  if (!p) return nullptr;
+  size_t at = 0;
+  std::vector<size_t> seg(T, 0), from(T, 0);
+  for (int64_t blk = 0;; ++blk) {
+    int t = (int)(blk % T);
+    size_t si = seg[t];
+    if (si >= marks[t].size()) break;
+    size_t end = marks[t][si];
+    memcpy(p + at, bs[t]->out.data() + from[t], end - from[t]);
+    at += end - from[t];
+    from[t] = end;
+    ++seg[t];
+  }
+  p[at] = 0;
+  *out_len = (int64_t)at;
+  return p;
+}
+
+// the exact sequential walk; null when memory runs out
+static char* unitig_sequential(const Index& idx, int min_match,
+                               const uint64_t* sorted, int64_t* out_len) {
+  Builder<PlainBits> b(idx, min_match, sorted);
+  b.run();
+  char* p = (char*)malloc(b.out.size() + 1);
+  if (!p) return nullptr;
+  memcpy(p, b.out.data(), b.out.size());
+  p[b.out.size()] = 0;
+  *out_len = (int64_t)b.out.size();
+  return p;
+}
+
+static char* unitig_walk(const Index& idx, int min_match,
+                         const uint64_t* sorted, int n_threads,
+                         int64_t* out_len) {
+  try {
+    if (n_threads > 1)
+      return unitig_threaded(idx, min_match, sorted, n_threads, out_len);
+    return unitig_sequential(idx, min_match, sorted, out_len);
+  } catch (const std::bad_alloc&) {
+    return nullptr;
+  }
+}
 
 // Link records of the stored sequences, as search/unitig_links.py's
 // LinkStore holds them (structure of arrays).
@@ -426,7 +709,7 @@ struct LinkArrays {
 };
 
 struct Stitcher {
-  Builder b;
+  Builder<PlainBits> b;
   const LinkArrays& la;
   const uint8_t* seq_flat;
   const int64_t* seq_offs;   // [n+1]
@@ -630,7 +913,6 @@ struct Stitcher {
     return true;
   }
 
-  // the reference's t=1 seed order (unitig.c:332-346)
   void run() {
     int64_t n1 = b.e.n_seqs;
     std::vector<uint8_t> s, cov;
@@ -654,10 +936,41 @@ struct Stitcher {
 
 extern "C" {
 
+// The unitigs of an index as MAG text, malloc'd (free it with
+// funitig_free), its length via out_len; null when memory runs out.
+// n_threads == 1: the exact sequential walk (the bytes of the reference's
+// `unitig -t 1`); n_threads > 1: the reference's `-t N` semantics (shared
+// atomic bitmaps, unitig.c:378-407): output ORDER deterministic, boundary
+// decisions timing-dependent like the reference's.
+char* funitig_run(const uint8_t* blocks, const int64_t* occ, int64_t n_rows,
+                  const int64_t* cnt, int64_t n_seqs, int min_match,
+                  const uint64_t* sorted, int n_threads, int64_t* out_len) {
+  Index idx;
+  *out_len = 0;
+  if (idx.setup(blocks, occ, n_rows, cnt, n_seqs)) return nullptr;
+  return unitig_walk(idx, min_match, sorted, n_threads, out_len);
+}
+
+// Same walk over an mmapped .fmd.blk record cache (out-of-core `-M` path):
+// RSS stays bounded by the pages the walk touches.  out_len = -1 when the
+// cache cannot be mapped.
+char* funitig_run_blk(const char* blk_path, int min_match,
+                      const uint64_t* sorted, int n_threads,
+                      int64_t* out_len) {
+  Index idx;
+  if (idx.setup_blk(blk_path)) {
+    *out_len = -1;
+    return nullptr;
+  }
+  *out_len = 0;
+  return unitig_walk(idx, min_match, sorted, n_threads, out_len);
+}
+
 // Bulk-link stitch over device-computed link records (see Stitcher).
 // seqs are passed as a flat uint8 buffer + [n+1] offsets; link buffers
 // may be int32 or int64 (idt64 flag).  Returns the MAG text, malloc'd
-// (free it with funitig_free), and its length via out_len.
+// (free it with funitig_free), and its length via out_len; null when
+// memory runs out.
 char* funitig_stitch(const uint8_t* blocks, const int64_t* occ,
                      int64_t n_rows, const int64_t* cnt, int64_t n_seqs,
                      int min_match, const uint64_t* sorted,
@@ -671,18 +984,24 @@ char* funitig_stitch(const uint8_t* blocks, const int64_t* occ,
                      const int32_t* sbn, int sbmax, const uint8_t* redo,
                      int idt64, int64_t* out_len, int64_t* n_recover) {
   Index idx;
-  idx.setup(blocks, occ, n_rows, cnt, n_seqs);
+  *out_len = 0;
+  if (idx.setup(blocks, occ, n_rows, cnt, n_seqs)) return nullptr;
   LinkArrays la{valid, ret, intv0, has_ovlp, nkb, nkf, nsz, nov, nex,
                 nein, skb, skf, ssz, sbn, redo, nmax, sbmax, idt64};
-  Stitcher st(idx, min_match, sorted, la, seq_flat, seq_offs, own_ks);
-  st.run();
-  if (n_recover) *n_recover = st.n_recover;
-  size_t len = st.b.out.size();
-  char* p = (char*)fx_malloc(len + 1, "funitig_stitch");
-  memcpy(p, st.b.out.data(), len);
-  p[len] = 0;
-  *out_len = (int64_t)len;
-  return p;
+  try {
+    Stitcher st(idx, min_match, sorted, la, seq_flat, seq_offs, own_ks);
+    st.run();
+    if (n_recover) *n_recover = st.n_recover;
+    size_t len = st.b.out.size();
+    char* p = (char*)malloc(len + 1);
+    if (!p) return nullptr;
+    memcpy(p, st.b.out.data(), len);
+    p[len] = 0;
+    *out_len = (int64_t)len;
+    return p;
+  } catch (const std::bad_alloc&) {
+    return nullptr;
+  }
 }
 
 void funitig_free(void* p) { free(p); }

@@ -21,9 +21,14 @@ the 'T'/'O' full-length flag).
 A batch whose longest query exceeds LONG_QUERY_LEN goes whole to the
 native sequential engine (native/smem.cpp, host), as in fermi_tpu: contig
 scale interval sets would make the fixed-width device buffers mostly
-padding.  Not ported: the TPU's phase-split schedule (pass A / pass B;
-ROADMAP queue 1, item 3a), whose pass B drops a final zero-size SMEM that
-this path and the native engine emit (fault F1).
+padding.  So does every batch on the out-of-core record cache of `-M`
+(index/blkidx.BlkIndex), which the engine maps from disk.  (fermi_tpu
+sends any index that is not its FMDIndex there; here the tp views of
+dist/sharded.py stand in for an FMDIndex and keep the device loop.)
+
+Not ported: the TPU's phase-split schedule (pass A / pass B; ROADMAP queue
+1, item 3a), whose pass B drops a final zero-size SMEM that this path and
+the native engine emit (fault F1).
 """
 
 import ctypes
@@ -31,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from fermi_tpu_torch.index.blkidx import BlkIndex
 from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.search.extend import SYNC_EVERY
 
@@ -420,8 +426,9 @@ def smem_all(index: FMDIndex, seqs: list[np.ndarray], self_match=False,
 
     Returns per read a list of (start, end, size, left_closed, kf) tuples, in
     the same order the reference fm6_smem emits them, computed on the
-    index's device (a batch holding a query longer than LONG_QUERY_LEN: by
-    the native engine on the host).
+    index's device (a batch holding a query longer than LONG_QUERY_LEN, or
+    any batch on the `-M` path's BlkIndex: by the native engine on the
+    host).
 
     The per-segment interval-list width (maxi) is COVERAGE-ADAPTIVE when
     not given: interval counts scale with index coverage, so the pool loop
@@ -434,7 +441,7 @@ def smem_all(index: FMDIndex, seqs: list[np.ndarray], self_match=False,
     if B == 0:
         return []
     max_len = max(len(s) for s in seqs)
-    if max_len > LONG_QUERY_LEN:
+    if max_len > LONG_QUERY_LEN or isinstance(index, BlkIndex):
         return smem_all_native(index, seqs, self_match)
     if maxi is None:
         maxi = getattr(index, "_smem_maxi", None)
@@ -639,11 +646,13 @@ def _native_index_arrays(index: FMDIndex):
     return cached
 
 
-def smem_all_native_raw(index: FMDIndex, seqs, self_match=False):
-    """SMEMs by the native sequential engine (native/smem.cpp fsmem_all),
-    raw: (flat int64 [total, 5] rows of (start, end, size, closed, kf) in
-    per-read emission order, counts int64 [n_reads]).  The raw form feeds
-    remap's native paircov without per-match Python objects."""
+def smem_all_native_raw(index, seqs, self_match=False):
+    """SMEMs by the native sequential engine (native/smem.cpp fsmem_all,
+    or fsmem_all_blk over the mapped record cache when `index` is a
+    BlkIndex), raw: (flat int64 [total, 5] rows of (start, end, size,
+    closed, kf) in per-read emission order, counts int64 [n_reads]).  The
+    raw form feeds remap's native paircov without per-match Python
+    objects."""
     from fermi_tpu_torch import native
 
     lib = native.get_smem_lib()
@@ -654,12 +663,21 @@ def smem_all_native_raw(index: FMDIndex, seqs, self_match=False):
         if seqs else np.zeros(0, np.uint8))
     counts = np.zeros(len(seqs), np.int64)
     total = ctypes.c_int64()
-    blocks, occ, cnt, n_seqs = _native_index_arrays(index)
-    ptr = lib.fsmem_all(blocks.ctypes.data, occ.ctypes.data, blocks.shape[0],
-                        cnt.ctypes.data, n_seqs, qbuf.ctypes.data,
-                        offsets.ctypes.data, len(seqs), int(self_match),
-                        counts.ctypes.data, ctypes.byref(total))
+    if isinstance(index, BlkIndex):
+        ptr = lib.fsmem_all_blk(index.path.encode(), qbuf.ctypes.data,
+                                offsets.ctypes.data, len(seqs),
+                                int(self_match), counts.ctypes.data,
+                                ctypes.byref(total))
+    else:
+        blocks, occ, cnt, n_seqs = _native_index_arrays(index)
+        ptr = lib.fsmem_all(blocks.ctypes.data, occ.ctypes.data,
+                            blocks.shape[0], cnt.ctypes.data, n_seqs,
+                            qbuf.ctypes.data, offsets.ctypes.data, len(seqs),
+                            int(self_match), counts.ctypes.data,
+                            ctypes.byref(total))
     if not ptr:
+        if total.value < 0:
+            raise OSError(f"fsmem_all_blk: cannot map {index.path}")
         raise MemoryError("fsmem_all: out of memory")
     try:
         flat = np.ctypeslib.as_array(
@@ -670,9 +688,10 @@ def smem_all_native_raw(index: FMDIndex, seqs, self_match=False):
     return flat, counts
 
 
-def smem_all_native(index: FMDIndex, seqs, self_match=False):
+def smem_all_native(index, seqs, self_match=False):
     """smem_all's tuples from the native sequential engine: the long-query
-    path, where per-segment interval sets reach hundreds."""
+    path, where per-segment interval sets reach hundreds, and the `-M`
+    path (index a BlkIndex)."""
     flat, counts = smem_all_native_raw(index, seqs, self_match)
     rows = flat.tolist()
     results, at = [], 0

@@ -66,13 +66,6 @@ def test_exact_output(fixture_files, self_match):
     assert got.count("EM\t") > 40
 
 
-def test_unported_flags_exit_with_roadmap_item(fixture_files, capsys):
-    fa, qfa, _, tfmd = fixture_files
-    assert tmain(["exact", "--device", "cpu", "-M", tfmd, qfa]) == 1
-    assert tmain(["unpack", "--device", "cpu", "-M", tfmd]) == 1
-    assert capsys.readouterr().err.count("ROADMAP") == 2
-
-
 def test_exact_query_ending_in_n_differs_from_split_driver(tmp_path):
     """Fault F1 at the CLI: a 51 bp query ending in N.  The port (like
     fermi_tpu's native engine and unified path) prints a final zero-size
@@ -143,6 +136,7 @@ def test_chkbwt(fixture_files, tmp_path, monkeypatch, flags):
         got = _run_rc(tmain, ["chkbwt", "--device", "cpu", *flags, fmd])
         assert got == _run_rc(jmain, ["chkbwt", *flags, fmd])
         assert got[0] == rc and ("-p" in flags and rc == 0) == bool(got[1])
+    # -M runs on the host and refuses a device
     assert tmain(["chkbwt", "--device", "cpu", "-M", tfmd]) == 1
 
 

@@ -38,7 +38,7 @@ def test_no_jax_or_fermi_tpu_imports():
     assert len(srcs) > 15
     rel = {os.path.relpath(p, ROOT) for p in srcs}
     for f in ("dist/sharded.py", "dist/launch.py", "misc/evaltools.py",
-              "graft_entry.py"):
+              "graft_entry.py", "index/mmapfmd.py", "index/blkidx.py"):
         assert os.path.join("fermi_tpu_torch", f) in rel
     bad = [(os.path.relpath(p, ROOT), m) for p in srcs for m in _imported(p)
            if m.split(".")[0] in ("jax", "jaxlib", "fermi_tpu")]
@@ -53,7 +53,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from fermi_tpu_torch import api
     from fermi_tpu_torch.algos.contrast import fm6_contrast
-    from fermi_tpu_torch.algos.merge import fm_merge
+    from fermi_tpu_torch.algos.merge import fm_append_streaming, fm_merge
     from fermi_tpu_torch.algos.sub import fm_sub
     from fermi_tpu_torch.cli.main import main
     from fermi_tpu_torch.construct.bcr_device import bcr_bwt_device
@@ -90,6 +90,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
              lambda: main(["seqsort", str(tmp_path / "x.fmd")]),
              lambda: main(["seqrank", str(tmp_path / "x.fmd")]),
              lambda: main(["unitig", str(tmp_path / "x.fmd")]),
+             lambda: main(["unitig", "-t", "4", str(tmp_path / "x.fmd")]),
+             lambda: fm_append_streaming(str(tmp_path / "x.fmd"), bwt,
+                                         str(tmp_path / "y.fmd")),
              lambda: compute_links_device(None, [np.ones(40, np.uint8)], 30),
              lambda: main(["merge", "-fo", str(tmp_path / "m.fmd"),
                            str(tmp_path / "x.fmd"), str(tmp_path / "x.fmd")]),
@@ -131,10 +134,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_host_commands_run_without_cuda(no_cuda, tmp_path, capfdbinary):
-    """clean, bitand, recode, remap, fltuniq and `ropebwt -a bpr` are host
-    code: they take no device and run with no CUDA present (remap restores
-    its index on the CPU and takes the contigs' SMEMs from the native
-    engine)."""
+    """clean, bitand, recode, remap, fltuniq, `ropebwt -a bpr` and every
+    command with -M are host code: they take no device and run with no
+    CUDA present (remap restores its index on the CPU and takes the
+    contigs' SMEMs from the native engine; -M queries the index off disk)."""
     from fermi_tpu_torch import rld
     from fermi_tpu_torch.cli.main import main
     from fermi_tpu_torch.construct import suffix
@@ -160,3 +163,17 @@ def test_host_commands_run_without_cuda(no_cuda, tmp_path, capfdbinary):
     out = capfdbinary.readouterr()
     assert 100 < out.out.count(b"@r") <= len(reads) and b"\n@c\n" in out.out
     assert b"[M::remap] avg" in out.err
+    rank = str(tmp_path / "r.rank")
+    assert main(["seqsort", "-M", "-t", "2", fmd]) == 0
+    with open(rank, "wb") as f:
+        f.write(capfdbinary.readouterr().out)
+    for argv in (["unpack", "-M", "-i", "3", fmd],
+                 ["exact", "-M", fmd, str(fq)],
+                 ["correct", "-M", "-k", "15", fmd, str(fq)],
+                 ["seqrank", "-M", fmd],
+                 ["unitig", "-M", "-t", "2", "-l", "30", "-r", rank, fmd],
+                 ["remap", "-M", "-r", rank, fmd, str(contigs)]):
+        assert main(argv) == 0, argv
+        assert capfdbinary.readouterr().out, argv
+    assert main(["chkbwt", "-M", "-r", fmd]) == 0
+    assert b"rank check passed" in capfdbinary.readouterr().err

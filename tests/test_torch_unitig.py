@@ -234,12 +234,17 @@ def test_cli_unitig_equals_fermi_tpu(rank_file, mm, with_rank):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["-M"], ["-t", "4"]])
-def test_cli_unitig_host_engines_not_ported(rank_file, flag):
-    rc, out, err = _run(tcli.main, ["unitig", "--device", "cpu", *flag,
-                                    rank_file[0]])
-    assert rc == 1 and out == ""
-    assert "item 3c" in err
+def test_cli_unitig_threads_take_the_card_path(rank_file):
+    """Without -M, `unitig -t 4` runs the card path (its plain versions
+    here) and prints `-t 1`'s bytes, fermi_tpu's CLI `unitig -t 1`."""
+    fmd, rank = rank_file
+    args = ["-l", "30", "-r", rank, fmd]
+    rc, want, _ = _run(jcli.main, ["unitig", "-t", "1", *args])
+    assert rc == 0 and want.count("\n+\n") > 3
+    for t in ("4", "1"):
+        rc, got, _ = _run(tcli.main, ["unitig", "--device", "cpu", "-t", t,
+                                      *args])
+        assert rc == 0 and got == want
 
 
 def _repeat_reads():
