@@ -22,7 +22,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   fermi_tpu's spread keys and at key 0), and that batch profiled both ways
   (device busy and idle share, device time by kernel);
 - `build` of reads with 1% substitutions at quality 14 (FASTQ), `correct`
-  of all of them, then of the first 32,768 with the host fix and with the
+  of all of them, then of the first 16,384 with the host fix and with the
   device fix, whose outputs must be byte-equal; the corrected reads are
   compared with the known genome;
 - `build` of the corrected reads and `seqsort`, whose .rank array must be a
@@ -34,7 +34,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   one batch of 65,536 of its sequences profiled (device busy and idle
   share, kernels a round, K1's device time);
 - the collect, seqsort and unitig (with and without the .rank array) of a
-  25 kbp window of the reads, and both cleans of its MAG, on the card and
+  12.5 kbp window of the reads, and both cleans of its MAG, on the card and
   on the CPU (the plain versions), which must be equal;
 - the text of the error-free reads through each device builder alone
   (prefix doubling, the blocked builder: 40 Mi-symbol wsort blocks folded
@@ -50,12 +50,12 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   at least 95% of B's reads inside an insertion are selected, and at
   least 99% of the selected reads on either side touch a difference;
 - merge, sub, contrast and the three device builders on the reads of a
-  25 kbp window of both genomes (the blocked builder in two blocks), on
+  12.5 kbp window of both genomes (the blocked builder in two blocks), on
   the card and on the CPU: equal;
 - `run -t 8 -k 50`, the unpaired pipeline (run-fermi.pl) from the noisy
   reads of the genome's first 1 Mbp (FASTQ) to p2.mag.gz: seconds by
   stage, and p2's unitigs, N50 and share of bases in unitigs found exactly
-  in the genome (at least 99%); `run` of the 25 kbp window's reads on the
+  in the genome (at least 99%); `run` of the 12.5 kbp window's reads on the
   card and on the CPU, every artifact equal;
 - `chkbwt -r` of the 281 Msym index (K1 at every position against a
   running count), and of a copy with one run corrupted, which must fail;
@@ -72,21 +72,21 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   scaf's gaps (examined, patched by local assembly, joined by SW, SW
   failures) and its local assemblies' BWT time, p2 and p4 by count and
   N50, the share of p4 in scaftigs found exactly in genome P; scaf must
-  examine a gap and launch K1; `run -P` of the pairs of a 100 kbp window
+  examine a gap and launch K1; `run -P` of the pairs of a 25 kbp window
   holding at least 4 repeat copies on the card and on the CPU, every
   artifact equal;
-- `example -e -c` of the 25 kbp window's reads on the card and on the
+- `example -e -c` of the 12.5 kbp window's reads on the card and on the
   CPU: equal;
 - the dp×tp layer (ranks are processes): two ranks sharing the card over
   gloo, the 281 Msym index split tp=2 (each rank restores the whole
   `.fmd` on the host and keeps its half of the rank rows on the card),
-  ShardedSMEM of the first 4,096 `exact` queries equal to the
+  ShardedSMEM of the first 2,048 `exact` queries equal to the
   single-process port's; the same through a world of one over NCCL;
   dp=2 `fm_merge_sharded` of two of the 4 parts, byte-equal to
   `fm_merge`; `dryrun_multichip(4)` on the card; per rank its seconds,
   K1 launches (each rank must launch K1), all-reduces and their ms, device
   peak and backend;
-- `ropebwt -a bpr|bcr|sais` of the 25 kbp window's reads, text and `-b`:
+- `ropebwt -a bpr|bcr|sais` of the 12.5 kbp window's reads, text and `-b`:
   the six outputs equal in each format, and the device engines' `-b`
   equal to theirs on the CPU;
 - `-M`, out of core on the host, over the files above, each call held to
@@ -100,7 +100,17 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   index under the reference's threaded contract against the card's p0;
   `chkbwt -M -r` of the index and of a corrupted copy; `remap -M -r` of
   the pairs window equal to `remap`; `fm_append_streaming` of the fourth
-  part onto the merge of three, equal to `build` of all the reads.
+  part onto the merge of three, equal to `build` of all the reads;
+- the wide index tier, last, at the size of fermi_tpu's own 2.26 Gsym run
+  (scripts/uint32_run.py): 5.6 M pairs of 2 x 100 bp from a random 44.8
+  Mbp genome (25x, insert 300 +- 30, 0.5% substitutions) as FASTQ, the
+  pipeline's raw_fmd stage on the card (the blocked builder folds 54
+  blocks past 2^31 symbols), the index restored once in the int64 domain
+  with fused rows, then `chkbwt -r`, rank6 at 64 positions against a host
+  scan, `exact` of 20,000 matched reads byte-equal to the native engine and
+  to `exact -M`, `unpack` of 1,000 ids against the reads; seconds by part,
+  device and host peaks; K1 at the main path's shape on the wide rows, and
+  one 4,096-read batch's K1 time against its wall time and idle share.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -126,6 +136,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -141,10 +152,10 @@ N_UNPACK = 1000
 N_CROSS = 512                   # exact queries before the profiled batch
 N_SW_PAIRS = 65_536
 N_CROSS_CPU = 128               # of them, searched again on the CPU
-N_FIX_SUB = 32_768              # reads of the host-vs-device fix rerun
-CROSS_WINDOW = 25_000           # genome bp whose reads the CPU re-checks
+N_FIX_SUB = 16_384              # reads of the host-vs-device fix rerun
+CROSS_WINDOW = 12_500           # genome bp whose reads the CPU re-checks
 RUN_GENOME = 1_000_000          # genome bp whose noisy reads `run` takes
-SETOPS_WINDOW = 25_000          # the same for merge, sub, contrast, builders
+SETOPS_WINDOW = 12_500          # the same for merge, sub, contrast, builders
 PAIRS_WINDOW = 100_000          # genome bp of remap's read pairs
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_SMS = 132
@@ -579,7 +590,8 @@ def in_turns(old, new):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def k1_at_main_path_shape(idx, maxi, rng, clock_hz, against=(), sets=16):
+def k1_at_main_path_shape(idx, maxi, rng, clock_hz, against=(), sets=16,
+                          tag="k1_main_shape"):
     """K1 at the shape of one SMEM loop step: lanes x 2 x maxi keys, drawn
     uniformly over the index's own fused rows, kernel against plain version
     on the card.  `sets` different key sets are launched in turn, so rows
@@ -617,7 +629,7 @@ def k1_at_main_path_shape(idx, maxi, rng, clock_hz, against=(), sets=16):
         r["ms"], r["this_ms"], r["turns_ms"] = in_turns(
             lambda: graph_ms(old), lambda: graph_ms(fns))
     res["max_abs_err"] = err
-    log("k1_main_shape", **res)
+    log(tag, **res)
     if err:
         raise AssertionError(f"K1 differs from its plain version: {err}")
     return res
@@ -681,12 +693,14 @@ def exact_batch(q_fa, lo=N_CROSS, n=4096):
     return seqs
 
 
-def k1_stream(idx, seqs, clock_hz, against=()):
+def k1_stream(idx, seqs, clock_hz, against=(), tag="k1_stream",
+              spread=True):
     """K1 on the keys of every loop step of one `exact` batch, captured from
     FMDIndex.rank6, with the dead slots' keys as fermi_tpu spreads them and
-    at 0 (this port's): device time per step against the bound, and each
-    tree of `against` in turns with this one.  Returns the spread keys of
-    every step, in order."""
+    at 0 (this port's; only at 0 without `spread`): device time per step
+    against the bound, and each tree of `against` in turns with this one.
+    Returns the spread keys of every step, in order (None without
+    `spread`), and the figures logged."""
     from fermi_tpu_torch.ops import rank_cuda as rc
     from fermi_tpu_torch.search import smem as sm
 
@@ -701,13 +715,14 @@ def k1_stream(idx, seqs, clock_hz, against=()):
     steps = len(rec)
     live = sum(int((k != -1).sum()) for k in rec)
     nkeys = sum(k.numel() for k in rec)
-    spread = spread_fill(idx)
+    fills = [("zero", lambda k: torch.where(k == -1, 0, k))]
+    if spread:
+        fills.insert(0, ("spread", spread_fill(idx)))
     res = dict(steps=steps, keys_per_step=nkeys / steps,
                live_keys_per_step=live / steps, live_share=live / nkeys)
     err = 0
     spread_keys = None
-    for name, fill in (("spread", spread),
-                       ("zero", lambda k: torch.where(k == -1, 0, k))):
+    for name, fill in fills:
         keys = [fill(k).reshape(-1).contiguous() for k in rec]
         for x in keys[::max(1, steps // 8)]:
             err = max(err, int((rc.rank6_fused(idx.fused, x).long()
@@ -734,13 +749,13 @@ def k1_stream(idx, seqs, clock_hz, against=()):
             spread_keys = [x.view(k.shape) for x, k in zip(keys, rec)]
         del keys, fns
     res["max_abs_err"] = err
-    log("k1_stream", **res)
+    log(tag, **res)
     if err:
         raise AssertionError(f"K1 differs from its plain version: {err}")
-    return spread_keys
+    return spread_keys, res
 
 
-def profile_exact(idx, seqs, keys=None):
+def profile_exact(idx, seqs, keys=None, tag="profile_exact"):
     """Where one `exact` batch (4,096 reads, one smem_all call) spends its
     time on the card: the call timed alone after a warm-up at the learned
     width, then once under torch.profiler for device time by kernel.  The
@@ -748,7 +763,7 @@ def profile_exact(idx, seqs, keys=None):
     (k1_stream's spread keys of each step) K1 gets those at each step in
     place of the search's own, which differ only in the dead slots: the
     same search and kernels, dead slots at fermi_tpu's spread instead of 0.
-    Returns the SMEM tuples."""
+    Returns the SMEM tuples and the figures logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -793,7 +808,8 @@ def profile_exact(idx, seqs, keys=None):
     busy = sum(dev_us.values()) / 1e6
     k1 = sum(t for key, t in dev_us.items() if "rank6_fused" in key) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-    log("profile_exact", dead_keys="zero" if keys is None else "spread",
+    info = dict(
+        dead_keys="zero" if keys is None else "spread",
         queries=len(seqs), maxi=getattr(idx, "_smem_maxi", None),
         wall_s=wall, reads_per_s=len(seqs) / wall, loop_steps=steps,
         host_ms_per_step=1e3 * wall / max(steps, 1),
@@ -802,7 +818,8 @@ def profile_exact(idx, seqs, keys=None):
         k1_device_s=k1, k1_device_us_per_step=1e6 * k1 / max(steps, 1),
         device_ops_per_step=n_dev / max(steps, 1),
         top_device_us={k[:60]: v for k, v in top})
-    return mems
+    log(tag, **info)
+    return mems, info
 
 
 def sw_pairs(rng, n):
@@ -1969,7 +1986,7 @@ INSERT, INSERT_SD = 300, 20
 # short interspersed repeat families (bp, exact copies), as a bacterial
 # genome's REP/BIME and IS elements
 REPEAT_FAMILIES = ((60, 50), (120, 50), (200, 50), (300, 50))
-PAIRED_WINDOW = 100_000         # genome-P bp of the card-vs-CPU paired run
+PAIRED_WINDOW = 25_000          # genome-P bp of the card-vs-CPU paired run
 PAIRED_ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "ec.rank", "p0.mag.gz",
                     "p1.mag.gz", "p2.mag.gz", "p3.mag.gz", "p4.fa.gz",
                     "p5.fq.gz")
@@ -2182,7 +2199,7 @@ def example_phase(workdir, win_fq, dev):
 # -- slice 8: the dp×tp layer on torch.distributed, ropebwt ---------------
 
 
-N_DIST_QUERIES = 4096           # `exact` queries of the sharded SMEM
+N_DIST_QUERIES = 2048           # `exact` queries of the sharded SMEM
 LANES_STEP = 2048               # lanes of an SMEM loop step (smem.LANES)
 DIST_TIMEOUT_S = 300            # bound on every collective and rank
 
@@ -2618,6 +2635,262 @@ def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
         raise AssertionError(f"-M differs: {eq}")
 
 
+# slice 10: the wide index tier at the size of fermi_tpu's own 2.26 Gsym
+# run (scripts/uint32_run.py, whose data is scripts/scale_bench.py make_pe)
+WIDE_PAIRS = 5_600_000          # 2 x 100 bp pairs: 11.2 M reads, 25x of
+WIDE_COVERAGE = 25              # a random 44.8 Mbp genome
+WIDE_INSERT, WIDE_INSERT_SD = 300, 30
+WIDE_ERR = 0.005                # substitutions, quality 15 (38 elsewhere)
+WIDE_CHUNK = 1 << 19            # pairs drawn and written at a time
+WIDE_QUERIES = 20_000           # matched `exact` reads, 1% fresh substitutions
+WIDE_PROFILED = 4096            # of them, the batch of k1_stream and profile
+WIDE_SPOTS = 64                 # rank6 positions checked by a host scan
+WIDE_MIN_SYMBOLS = 2**31        # the index must reach the int64 domain
+
+
+def wide_reads(rng, path, n_pairs):
+    """make_pe's data, drawn here: a random genome of 2 * n_pairs * 100 /
+    25 bp, pairs at an insert of 300 +- 30 (clipped to [110, 420]), the
+    second mate reverse-complemented, 0.5% substitutions, as plain 4-line
+    FASTQ with both mates of pair i named @p<i> (nine digits).  Returns the
+    reads as nt4 codes [2 * n_pairs, READ_LEN], in file order."""
+    rl = READ_LEN
+    glen = 2 * n_pairs * rl // WIDE_COVERAGE
+    top = WIDE_INSERT + 4 * WIDE_INSERT_SD
+    genome = rng.integers(0, 4, glen + top, dtype=np.int8)
+    windows = np.lib.stride_tricks.sliding_window_view(genome, rl)
+    reads = np.empty((2 * n_pairs, rl), np.uint8)
+    width = 12 + 2 * (rl + 1) + 2          # header, seq, "+", qual
+    with open(path, "wb") as f:
+        for lo in range(0, n_pairs, WIDE_CHUNK):
+            m = min(WIDE_CHUNK, n_pairs - lo)
+            ins = np.clip(rng.normal(WIDE_INSERT, WIDE_INSERT_SD, m)
+                          .astype(np.int64), rl + 10, top)
+            pos = rng.integers(0, glen, m)
+            r = reads[2 * lo: 2 * (lo + m)]
+            r[0::2] = windows[pos]
+            r[1::2] = 3 - windows[pos + ins - rl][:, ::-1]
+            nerr = rng.binomial(rl, WIDE_ERR, 2 * m)
+            rows = np.repeat(np.arange(2 * m), nerr)
+            at = rng.integers(0, rl, rows.size)
+            r[rows, at] = (r[rows, at] + rng.integers(1, 4, rows.size)) % 4
+            rec = np.empty((2 * m, width), np.uint8)
+            rec[:, :2] = np.frombuffer(b"@p", np.uint8)
+            ids = np.repeat(np.arange(lo, lo + m), 2)
+            for d in range(9):
+                rec[:, 2 + d] = 48 + ids // 10 ** (8 - d) % 10
+            rec[:, 11] = 10
+            rec[:, 12: 12 + rl] = ASCII[r]
+            rec[:, 12 + rl: 15 + rl] = np.frombuffer(b"\n+\n", np.uint8)
+            qual = rec[:, 15 + rl: 15 + 2 * rl]
+            qual[:] = 38 + 33
+            qual[rows, at] = 15 + 33
+            rec[:, -1] = 10
+            rec.tofile(f)
+    return reads
+
+
+def host_peak_gib():
+    """This process's peak resident set so far (getrusage), GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
+    """The wide index tier end to end: 2 x n_pairs reads written as FASTQ,
+    the driver's raw_fmd stage on `dev` (native encoders, the text, the
+    blocked builder past 2^31 symbols, RLE and dump on the host), the index
+    restored once (int64 domain, fused rows), then over it: `chkbwt -r`
+    (its command's check_ranks), rank6 at WIDE_SPOTS positions against a
+    host bincount scan, `exact` of WIDE_QUERIES matched reads on the card
+    byte-equal to the native engine over the same index's host arrays and
+    to the CLI's `exact -M` over the .fmd.blk record cache, and `unpack` of
+    N_UNPACK ids against the reads.  Every step is a gate.  Then K1 timed
+    at the main path's shape on the wide rows, and one WIDE_PROFILED batch
+    through k1_stream and profile_exact for ROADMAP item 3a's rule.
+    Returns K1's launches on the path."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
+                                          write_exact)
+    from fermi_tpu_torch.construct import blocked
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.pipeline import driver
+    from fermi_tpu_torch.search import extend as se
+    from fermi_tpu_torch.search import smem as sm
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    wd = os.path.join(workdir, "wide")
+    os.makedirs(wd)
+    secs, out = {}, {"host_peak_gib_before": host_peak_gib()}
+    fq = os.path.join(wd, "pairs.fq")
+    t0 = time.perf_counter()
+    reads = wide_reads(rng, fq, n_pairs)
+    secs["data"] = time.perf_counter() - t0
+    out["fastq_gb"] = os.path.getsize(fq) / 1e9
+    pick = rng.integers(0, len(reads), WIDE_QUERIES)
+    q = reads[pick]
+    err = rng.random(q.shape) < 0.01
+    q[err] = (q[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    q_fa = os.path.join(wd, "q.fa")
+    write_fasta(q_fa, ASCII[q])
+    del q, err
+
+    # the path: the driver's raw_fmd stage, one restore, the queries
+    reset_launches()
+    torch.cuda.empty_cache()
+    peak = {}                            # device peak by part, GB
+    pl = driver.Pipeline(os.path.join(wd, "w"), n_threads=8, device=dev)
+    with contextlib.redirect_stderr(io.StringIO()):
+        _, secs["raw_fmd"], peak["build"] = timed(
+            dev, lambda: pl.stage_raw_fmd([fq]))
+    fmd = pl._p("raw.fmd")
+    del pl
+    os.remove(fq)
+    b = driver.BUILD_STATS
+    secs.update({k[:-2]: b[k] for k in ("frags_s", "text_s", "bwt_s",
+                                        "rle_s", "dump_s")})
+    secs.update(blocked_sort=blocked.STATS["sort_s"],
+                blocked_merge=blocked.STATS["merge_s"])
+    out.update(symbols=b["symbols"], fragments=b["fragments"],
+               blocks=blocked.STATS["blocks"],
+               merge_steps=blocked.STATS["merge_steps"],
+               fmd_gb=os.path.getsize(fmd) / 1e9,
+               host_peak_gib_build=host_peak_gib())
+    if b["symbols"] != 2 * len(reads) * (READ_LEN + 1):
+        raise AssertionError(f"the wide index holds {b['symbols']} symbols")
+    if blocked.STATS["blocks"] < 2:
+        raise AssertionError("the wide build did not take the blocked path")
+
+    def restore():
+        runs = rld.read_fmd(fmd)
+        return runs.mcnt.copy(), len(runs.lengths), FMDIndex.from_runs(
+            runs, dev)
+    (mcnt, out["runs"], idx), secs["restore"], peak["restore"] = timed(
+        dev, restore)
+    occ_max = int(idx.occ[-1, :6].max())
+    out.update(idtype=str(idx.idtype), fused=idx.fused is not None,
+               cnt_top=int(idx.cnt[5]), occ_max=occ_max,
+               host_peak_gib_restore=host_peak_gib())
+    if (idx.total < WIDE_MIN_SYMBOLS or idx.idtype != torch.int64
+            or idx.fused is None or idx.total >= 2**32 - 128):
+        raise AssertionError(f"wide index: {idx.total} symbols, "
+                             f"{idx.idtype}, fused {idx.fused is not None}")
+
+    # chkbwt -r: K1 at every position against a running count
+    e = io.StringIO()
+    with contextlib.redirect_stderr(e):
+        rc, secs["chkbwt"], peak["chkbwt"] = timed(
+            dev, lambda: check_ranks(idx, mcnt))
+    if rc or "rank check passed" not in e.getvalue():
+        raise AssertionError(f"chkbwt -r of the wide index: {e.getvalue()}")
+    out["chkbwt_chunks"] = -(-idx.total // CHKBWT_CHUNK)
+
+    # rank6 at sampled positions, half of them past 2^31, against a host
+    # scan of the BWT that does not use K1
+    t0 = time.perf_counter()
+    blocks_h = sm._native_index_arrays(idx)[0]
+    flat = blocks_h.reshape(-1)[: idx.total]
+    lo_k = min(WIDE_MIN_SYMBOLS, idx.total)
+    ks = np.sort(np.concatenate([
+        rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
+        rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
+    got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
+    want = np.zeros((len(ks), 6), np.int64)
+    acc = np.zeros(6, np.int64)
+    prev = 0
+    for t, k in enumerate(ks):
+        # 1 Mi-symbol slices: bincount's int64 copy of each stays in cache
+        for a in range(prev, k, 1 << 20):
+            acc += np.bincount(flat[a: min(k, a + (1 << 20))],
+                               minlength=6)[:6]
+        want[t] = acc
+        prev = k
+    spots_ok = int((got == want).all(1).sum())
+    secs["rank_spots"] = time.perf_counter() - t0
+    out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
+               rank_spots_past_2_31=int((ks >= 2**31).sum()))
+    if spots_ok != len(ks):
+        raise AssertionError(f"rank6 spot check: {spots_ok}/{len(ks)}")
+
+    # exact on the card (the CLI's batches and records), the native engine
+    # over the same index's host arrays, and `exact -M`
+    names = [f"r{i}" for i in range(WIDE_QUERIES)]
+    seqs = [dna.encode(x) for x in
+            (ln.strip() for ln in open(q_fa) if not ln.startswith(">"))]
+    sm.STATS.update(reads=0, redo=0, maxi=None)
+    mems, secs["exact_card"], peak["exact"] = timed(dev, lambda: [
+        m for lo in range(0, len(seqs), 4096)
+        for m in sm.smem_all(idx, seqs[lo: lo + 4096])])
+    card = io.StringIO()
+    write_exact(idx, names, seqs, mems, card)
+    out.update(exact_reads_per_s=len(seqs) / secs["exact_card"],
+               smems=sum(len(m) for m in mems), redo_reads=sm.STATS["redo"],
+               learned_maxi=sm.STATS["maxi"])
+    t0 = time.perf_counter()
+    nat = sm.smem_all_native(idx, seqs)
+    secs["exact_native"] = time.perf_counter() - t0
+    if nat != mems:
+        raise AssertionError("wide exact: card != native engine")
+    del nat
+
+    # unpack of sampled ids: x is read x // 2, reverse-complemented when
+    # x is odd
+    ids = np.sort(rng.choice(idx.n_seqs, N_UNPACK, replace=False))
+    (got, _), secs["unpack"], _ = timed(
+        dev, lambda: se.retrieve_strings(idx, ids, max_len=1 << 16))
+    for x, s in zip(ids, got):
+        r = reads[x // 2] + 1
+        want = r if x % 2 == 0 else (5 - r)[::-1]
+        if not np.array_equal(s, want):
+            raise AssertionError(f"wide unpack of id {x}")
+    k1 = launches()["rank6_fused"]
+    out["device_peak_gb"] = {k: v / 1e9 for k, v in peak.items()}
+    if on_card and k1 < 1:
+        raise AssertionError("the wide path launched no K1")
+
+    # exact -M over the record cache, on the host
+    blk, secs["ensure_blk"] = host_only(
+        "ensure_blk", lambda: ensure_blk(fmd, n_threads=OOC_THREADS))
+    out.update(blk_rows=blk.n_rows,
+               blk_gb=os.path.getsize(blk.path) / 1e9, blk_wide=blk.wide)
+    (secs["exact_M"], text, _), _ = host_only(
+        "exact -M", lambda: run_cli(["exact", "-M", fmd, q_fa]))
+    if text != card.getvalue() or text.count("SQ\t") != WIDE_QUERIES:
+        raise AssertionError("wide exact: card != exact -M")
+    out.update(exact_reads_per_s_M=WIDE_QUERIES / secs["exact_M"],
+               host_peak_gib=host_peak_gib())
+    del blocks_h, flat, reads
+
+    # K1 on the wide rows: the main path's shape, then one batch's steps,
+    # and the batch profiled (ROADMAP item 3a's rule)
+    k1_main = k1_at_main_path_shape(idx, maxi, rng, clock_hz,
+                                    tag="wide_k1_main_shape")
+    batch = seqs[:WIDE_PROFILED]
+    _, stream = k1_stream(idx, batch, clock_hz, tag="wide_k1_stream",
+                          spread=False)
+    prof_mems, prof = profile_exact(idx, batch, tag="wide_profile_exact")
+    if prof_mems != mems[:WIDE_PROFILED]:
+        raise AssertionError("the profiled batch's SMEMs changed")
+    k1_s = stream["zero"]["us_per_step"] * stream["steps"] / 1e6
+    share = k1_s / prof["wall_s"]
+    idle = prof["idle_share"]
+    close = share < 0.25 or (isinstance(idle, float) and idle >= 0.5)
+    log("wide_3a", k1_graph_s=k1_s, wall_s=prof["wall_s"],
+        k1_share_of_wall=share, idle_share=idle,
+        decision="close" if close else "keep")
+    del idx, mems
+    torch.cuda.empty_cache()
+    shutil.rmtree(wd)
+    log("wide", pairs=n_pairs, seconds=secs, k1_launches=k1,
+        k1_main_shape_ms=k1_main["ms"], k1_main_shape_bound_ms=k1_main[
+            "bound_ms"], **out, phase_seconds=time.perf_counter() - t_phase)
+    return k1
+
+
 def ptxas_report(jobs):
     """Start `nvcc -Xptxas -v` on each CUDA job's source (the build's own
     flags, output discarded); returns a function that waits and gives, per
@@ -2662,7 +2935,7 @@ def main():
 
     dev = torch.device("cuda")
     card_line = gpu_line()
-    t0 = time.perf_counter()
+    t0 = t_script = time.perf_counter()
     ptxas = ptxas_report([native.rank_job(), native.sw_job()])
     native.build_all([*native.host_jobs(), native.rank_job(),
                       native.sw_job()])
@@ -2695,8 +2968,9 @@ def main():
         k1 = k1_at_main_path_shape(gidx, res["maxi"], rng, clock_hz,
                                    against)
         seqs = exact_batch(res["q_fa"])
-        spread_keys = k1_stream(gidx, seqs, clock_hz, against)
-        if profile_exact(gidx, seqs, spread_keys) != profile_exact(gidx, seqs):
+        spread_keys, _ = k1_stream(gidx, seqs, clock_hz, against)
+        if (profile_exact(gidx, seqs, spread_keys)[0]
+                != profile_exact(gidx, seqs)[0]):
             raise AssertionError("dead slots' keys changed the SMEMs")
         del gidx, spread_keys
         torch.cuda.empty_cache()
@@ -2732,10 +3006,14 @@ def main():
         # slice 9: -M, out of core on the host, over the files above
         outofcore_phase(workdir, dev, res, ec_res, ss, ut,
                         (win_fmd, win_rank, win_unitig), rp)
+        # slice 10: the wide index tier, from a stream of its own
+        k1_wide = wide_phase(np.random.default_rng(args.seed + 5), workdir,
+                             dev, res["maxi"], clock_hz)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"] + ut["k1_launches"]
                    + run["k1_launches"] + k1_chkbwt + sum(setops)
-                   + k1_paired + k1_example + k1_dist)
+                   + k1_paired + k1_example + k1_dist + k1_wide)
+    log("total", seconds=time.perf_counter() - t_script)
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "rank6_fused", "route": "cuda",

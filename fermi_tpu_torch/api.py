@@ -69,21 +69,22 @@ def _text(seqs):
 
 def build_index(seqs, device=None):
     """FMD-index over the reads and their reverse complements
-    (fm6_build2, build.c:52-70), built and kept on `device`."""
-    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+    (fm6_build2, build.c:52-70), built and kept on `device`; a text of
+    2^31 - 8 symbols or more is sorted by the blocked builder."""
+    from fermi_tpu_torch.construct import blocked
     from fermi_tpu_torch.index.fmd import FMDIndex
 
-    bwt = multistring_bwt_device(_text(seqs), device)
-    return FMDIndex.from_bwt(bwt, device)
+    return FMDIndex.from_bwt(blocked.device_bwt(_text(seqs), device), device)
 
 
 def save_index(seqs, path: str, device=None):
     """Build and write a byte-exact .fmd file for a read set
-    (fm_build + rld_dump; rld.c:242-263); the BWT is sorted on `device`."""
+    (fm_build + rld_dump; rld.c:242-263); the BWT is sorted on `device`,
+    in blocks when the text is too long for prefix doubling."""
     from fermi_tpu_torch import rld
-    from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
+    from fermi_tpu_torch.construct import blocked
 
-    runs = rld.Runs.from_bwt(multistring_bwt_device(_text(seqs), device))
+    runs = rld.Runs.from_bwt(blocked.device_bwt(_text(seqs), device))
     rld.write_fmd(runs, path)
 
 

@@ -165,16 +165,24 @@ def cmd_exact(args):
     recs = list(fastx.read_fastx(args.fastx))
     seqs = [dna.encode(r.seq) for r in recs]
     batch = 4096
-    out = sys.stdout
     for lo in range(0, len(recs), batch):
         chunk = seqs[lo: lo + batch]
-        matches = sm.smem_all(idx, chunk, self_match=args.self_match)
-        for rec, s, mems in zip(recs[lo: lo + batch], chunk, matches):
-            out.write(f"SQ\t{rec.name}\t{len(s)}\t{len(mems)}\n")
-            for m in mems:
-                out.write("EM\t" + sm.format_smem(idx, m) + "\n")
-            out.write("//\n")
+        write_exact(idx, [r.name for r in recs[lo: lo + batch]], chunk,
+                    sm.smem_all(idx, chunk, self_match=args.self_match),
+                    sys.stdout)
     return 0
+
+
+def write_exact(idx, names, seqs, matches, out):
+    """`exact`'s records of the queries `names`/`seqs` and their SMEMs
+    (smem_all's tuples) on `out`."""
+    from fermi_tpu_torch.search import smem as sm
+
+    for name, s, mems in zip(names, seqs, matches):
+        out.write(f"SQ\t{name}\t{len(s)}\t{len(mems)}\n")
+        for m in mems:
+            out.write("EM\t" + sm.format_smem(idx, m) + "\n")
+        out.write("//\n")
 
 
 CHKBWT_CHUNK = 1 << 22     # positions a rank-check step compares
@@ -194,11 +202,8 @@ def _add_chkbwt(sub):
 
 
 def cmd_chkbwt(args):
-    """The marginal counts; with -r, rank6 at every position against a
-    running count of the BWT, a chunk at a time on the index's device (the
-    memory beyond the index is one chunk's); with -p, the BWT as text."""
-    import torch
-
+    """The marginal counts; with -r, check_ranks; with -p, the BWT as
+    text."""
     from fermi_tpu_torch import resolve_device, rld
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.index.fmd import FMDIndex
@@ -212,31 +217,43 @@ def cmd_chkbwt(args):
     mc = ", ".join(str(int(x)) for x in runs.mcnt)
     sys.stderr.write(f"[M::chkbwt] marginal counts: ({mc})\n")
     idx = FMDIndex.from_runs(runs, device)
-    if args.check_rank:
-        bwt = idx.bwt()
-        syms = torch.arange(6, dtype=torch.uint8, device=device)[:, None]
-        carry = torch.zeros((6, 1), dtype=torch.int64, device=device)
-        for lo in range(0, idx.total, CHKBWT_CHUNK):
-            hi = min(lo + CHKBWT_CHUNK, idx.total)
-            # counts of each symbol in BWT[0..k] for k in [lo, hi), as
-            # [6, hi - lo]: the scan runs along the inner dimension
-            expect = carry + torch.cumsum(bwt[lo:hi] == syms, 1)
-            ks = torch.arange(lo + 1, hi + 1, device=device)
-            bad = (idx.rank6(ks).T != expect).T.nonzero()
-            if bad.numel():
-                pos, c = bad[0].tolist()
-                sys.stderr.write(
-                    f"[E::chkbwt] rank({c},{lo + pos}) mismatch\n")
-                return 1
-            carry = expect[:, -1:]
-        want = np.asarray(runs.mcnt[1:7], dtype=np.int64)
-        if not np.array_equal(carry[:, 0].cpu().numpy(), want):
-            sys.stderr.write("[E::chkbwt] marginal count mismatch\n")
-            return 1
-        sys.stderr.write("[M::chkbwt] rank check passed\n")
+    if args.check_rank and check_ranks(idx, runs.mcnt):
+        return 1
     if args.plain:
         sys.stdout.write(dna.decode(idx.bwt().cpu().numpy()))
         sys.stdout.write("\n")
+    return 0
+
+
+def check_ranks(idx, mcnt) -> int:
+    """`chkbwt -r` of a restored index: rank6 at every position against a
+    running count of the BWT, a chunk at a time on the index's device (the
+    memory beyond the index is one chunk's), then the final counts against
+    the header's marginal counts `mcnt`.  Returns the exit code; the
+    messages go to stderr."""
+    import torch
+
+    bwt = idx.bwt()
+    device = idx.device
+    syms = torch.arange(6, dtype=torch.uint8, device=device)[:, None]
+    carry = torch.zeros((6, 1), dtype=torch.int64, device=device)
+    for lo in range(0, idx.total, CHKBWT_CHUNK):
+        hi = min(lo + CHKBWT_CHUNK, idx.total)
+        # counts of each symbol in BWT[0..k] for k in [lo, hi), as
+        # [6, hi - lo]: the scan runs along the inner dimension
+        expect = carry + torch.cumsum(bwt[lo:hi] == syms, 1)
+        ks = torch.arange(lo + 1, hi + 1, device=device)
+        bad = (idx.rank6(ks).T != expect).T.nonzero()
+        if bad.numel():
+            pos, c = bad[0].tolist()
+            sys.stderr.write(f"[E::chkbwt] rank({c},{lo + pos}) mismatch\n")
+            return 1
+        carry = expect[:, -1:]
+    want = np.asarray(mcnt[1:7], dtype=np.int64)
+    if not np.array_equal(carry[:, 0].cpu().numpy(), want):
+        sys.stderr.write("[E::chkbwt] marginal count mismatch\n")
+        return 1
+    sys.stderr.write("[M::chkbwt] rank check passed\n")
     return 0
 
 
@@ -870,10 +887,8 @@ def cmd_ropebwt(args):
         from fermi_tpu_torch.construct.bcr_device import bcr_bwt_device
         bwt = bcr_bwt_device(frags, device)
     else:
-        from fermi_tpu_torch.construct import suffix
-        from fermi_tpu_torch.construct.suffix_device import (
-            multistring_bwt_device)
-        bwt = multistring_bwt_device(
+        from fermi_tpu_torch.construct import blocked, suffix
+        bwt = blocked.device_bwt(
             suffix.build_text(frags, both_strands=False,
                               trim_palindrome=False), device)
     runs = rld.Runs.from_bwt(bwt)

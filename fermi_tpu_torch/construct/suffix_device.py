@@ -28,8 +28,8 @@ def multistring_bwt_device(text: np.ndarray, device=None) -> np.ndarray:
     if n >= MAX_TEXT:
         raise NotImplementedError(
             f"text of {n} symbols: the packed sort key needs n < 2^31; "
-            "build texts this large with construct.blocked (the CLI's "
-            "build does)")
+            "construct.blocked.device_bwt is the entry for texts of any "
+            "length")
     t = torch.from_numpy(text).to(dev)
     i64 = torch.int64
     is_sent = t == 0

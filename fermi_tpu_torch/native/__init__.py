@@ -168,6 +168,9 @@ _SIGNATURES = {
                                   ctypes.POINTER(ctypes.c_uint64),
                                   ctypes.POINTER(ctypes.c_int)]),
         "frld_free": (None, [_P]),
+        # frle_count(bwt, n) -> runs; frle_from_bwt(bwt, n, syms, lens)
+        "frle_count": (_I64, [_P, _I64]),
+        "frle_from_bwt": (_I64, [_P, _I64, _P, _P]),
         "frld_enc_open": (_P, [_I, _I]),
         # frld_enc_put(h, run_len, run_sym, n_runs) -> 0 / -9 memory
         "frld_enc_put": (_I, [_P, _P, _P, _I64]),

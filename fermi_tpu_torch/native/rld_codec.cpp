@@ -599,6 +599,37 @@ int frld_encode_file(const int64_t* run_len, const uint8_t* run_sym,
   }
 }
 
+// Number of maximal runs in a BWT, so that the caller can size the
+// frle_from_bwt buffers exactly.
+int64_t frle_count(const uint8_t* bwt, int64_t n) {
+  if (n == 0) return 0;
+  int64_t nr = 1;
+  for (int64_t i = 1; i < n; ++i) nr += bwt[i] != bwt[i - 1];
+  return nr;
+}
+
+// The runs of a BWT as (symbol, length) into buffers of frle_count
+// entries; returns the run count.
+int64_t frle_from_bwt(const uint8_t* bwt, int64_t n, uint8_t* syms,
+                      int64_t* lens) {
+  if (n == 0) return 0;
+  int64_t nr = 0, l = 1;
+  uint8_t c = bwt[0];
+  for (int64_t i = 1; i < n; ++i) {
+    if (bwt[i] == c) {
+      ++l;
+    } else {
+      syms[nr] = c;
+      lens[nr++] = l;
+      c = bwt[i];
+      l = 1;
+    }
+  }
+  syms[nr] = c;
+  lens[nr++] = l;
+  return nr;
+}
+
 // Decodes a .fmd (RLD\2 or raw RLE-byte) file into malloc'd run arrays.
 // mcnt_out must have room for asize+1 entries (7 for DNA). Returns 0 on
 // success, -9 when memory runs out, else the decoder's error.

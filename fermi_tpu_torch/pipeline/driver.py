@@ -35,6 +35,12 @@ import numpy as np
 from fermi_tpu_torch import native, resolve_device
 
 
+# Seconds by part of the last index build (_build_from_frags), for
+# measurement (the chip smoke test reads them): the read encoders, the
+# text, the device BWT, its run-length encoding and the .fmd dump.
+BUILD_STATS = {}
+
+
 def log(stage, msg):
     sys.stderr.write(f"[pipeline::{stage}] {msg}\n")
     sys.stderr.flush()
@@ -210,16 +216,26 @@ class Pipeline:
         nfrag = len(offs) - 1
         t_text = time.time()
         text = suffix.build_text_packed(F, offs)
-        log("build", f"{nfrag} fragments, {text.size / 1e6:.1f}M "
+        n_sym = int(text.size)
+        log("build", f"{nfrag} fragments, {n_sym / 1e6:.1f}M "
             f"symbols on {self.device}")
         t_sort = time.time()
-        runs = rld.Runs.from_bwt(blocked.device_bwt(text, self.device))
-        t_bwt = time.time()
+        bwt = blocked.device_bwt(text, self.device)
+        del text
+        t_rle = time.time()
+        runs = rld.Runs.from_bwt(bwt)
+        del bwt
+        t_dump = time.time()
         rld.write_fmd(runs, out_fmd)
         self._cache[("runs", out_fmd)] = runs
+        BUILD_STATS.update(
+            fragments=nfrag, symbols=n_sym, frags_s=t_text - t0,
+            text_s=t_sort - t_text, bwt_s=t_rle - t_sort,
+            rle_s=t_dump - t_rle, dump_s=time.time() - t_dump)
         log("build", f"wrote {out_fmd} in {time.time() - t0:.1f}s "
             f"(frags {t_text - t0:.1f}, text {t_sort - t_text:.1f}, "
-            f"bwt {t_bwt - t_sort:.1f}, dump {time.time() - t_bwt:.1f})")
+            f"bwt {t_rle - t_sort:.1f}, rle {t_dump - t_rle:.1f}, "
+            f"dump {time.time() - t_dump:.1f})")
 
     def build_index(self, reads_iter, out_fmd, paths=None):
         """raw/ec FMD-index (the reference's `ropebwt -a bcr -N` stage):

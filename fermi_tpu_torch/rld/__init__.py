@@ -45,13 +45,20 @@ class Runs:
         if bwt.size == 0:
             return Runs(np.zeros(0, np.int64), np.zeros(0, np.uint8),
                         np.zeros(asize + 1, np.uint64), asize)
-        boundaries = np.flatnonzero(bwt[1:] != bwt[:-1]) + 1
-        starts = np.concatenate(([0], boundaries))
-        ends = np.concatenate((boundaries, [bwt.size]))
-        lengths = (ends - starts).astype(np.int64)
-        symbols = bwt[starts]
+        # one native pass counts the runs, one fills buffers of that size
+        # (native/rld_codec.cpp, as fermi_tpu's native path): no array of
+        # the BWT's length beside it
+        bwt = np.ascontiguousarray(bwt)
+        lib = native.get_lib()
+        n_runs = lib.frle_count(bwt.ctypes.data, bwt.size)
+        symbols = np.empty(n_runs, np.uint8)
+        lengths = np.empty(n_runs, np.int64)
+        lib.frle_from_bwt(bwt.ctypes.data, bwt.size, symbols.ctypes.data,
+                          lengths.ctypes.data)
         mcnt = np.zeros(asize + 1, np.uint64)
-        mcnt[1:] = np.bincount(bwt, minlength=asize)[:asize].astype(np.uint64)
+        # the float sums are exact below 2^53
+        mcnt[1:] = np.bincount(symbols, weights=lengths,
+                               minlength=asize)[:asize].astype(np.uint64)
         mcnt[0] = bwt.size
         return Runs(lengths, symbols, mcnt, asize)
 

@@ -17,7 +17,7 @@ from fermi_tpu_torch.core import dna
 from fermi_tpu_torch.ops import rank_cuda
 from fermi_tpu_torch.search import extend, smem
 
-from util import random_reads, write_fasta
+from util import random_reads, write_fasta, write_fastq
 
 pytestmark = pytest.mark.cuda
 
@@ -663,3 +663,55 @@ def test_ropebwt_card_vs_cpu(card, tmp_path):
     for b in (0, 1):
         assert len({outs[a, d, b] for a in ("bpr", "bcr", "sais")
                     for d in ("cuda", "cpu")}) == 1
+
+
+def test_wide_chain_card_vs_cpu(card, tmp_path, monkeypatch):
+    """The wide tier's chain in small, forced into the int64 domain and
+    through the blocked builder: the driver's raw_fmd on the card writes
+    the CPU's bytes and launches K1 (the folds' gap walks); over the index
+    restored on each device, check_ranks (`chkbwt -r`) passes and `exact`
+    and `unpack` print the same bytes."""
+    from fermi_tpu_torch.cli import main as cli
+    from fermi_tpu_torch.construct import blocked, suffix_device
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.pipeline.driver import Pipeline
+
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    monkeypatch.setattr(suffix_device, "MAX_TEXT", 2000)
+    orig = blocked.device_build_text
+    monkeypatch.setattr(
+        blocked, "device_build_text",
+        lambda text, device=None: orig(text, block_symbols=1500,
+                                       device=device))
+    monkeypatch.setattr(cli, "CHKBWT_CHUNK", 997)
+    reads = random_reads(120, min_len=60, max_len=80, seed=51,
+                         with_genome=True, genome_len=2000)
+    fq, qfa = str(tmp_path / "r.fq"), str(tmp_path / "q.fa")
+    write_fastq(fq, reads)
+    write_fasta(qfa, reads[::4])
+    fmd = {}
+    for dev in ("cuda", "cpu"):
+        before = rank_cuda.LAUNCHES["rank6_fused"]
+        pl = Pipeline(str(tmp_path / dev), n_threads=2, device=dev)
+        with contextlib.redirect_stderr(io.StringIO()):
+            pl.stage_raw_fmd([fq])
+        fmd[dev] = pl._p("raw.fmd")
+        assert blocked.STATS["blocks"] > 3
+        if dev == "cuda":
+            assert rank_cuda.LAUNCHES["rank6_fused"] > before
+    assert open(fmd["cuda"], "rb").read() == open(fmd["cpu"], "rb").read()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        idx = FMDIndex.restore(fmd["cuda"], dev)
+        assert idx.idtype == torch.int64 and idx.fused is not None
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert cli.check_ranks(idx, idx.mcnt.cpu().numpy()) == 0
+        outs[dev] = []
+        for argv in (["exact", fmd["cuda"], qfa], ["unpack", fmd["cuda"]]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main([argv[0], "--device", dev, *argv[1:]]) == 0
+            outs[dev].append(buf.getvalue())
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cpu"][0].count("SQ\t") == 30
+    assert len(outs["cpu"][1].splitlines()) == 240
