@@ -9,12 +9,12 @@ at once; `nvcc -Xptxas -v` beside them reports each kernel's registers and
 spills), holds kernels K1 (csrc/rank.cu) and K2 (csrc/sw.cu) bit-equal to
 their plain PyTorch versions on the card, then drives the port's paths
 through their entry points at the size of a bacterial re-sequencing run of
-a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
-100 bp reads:
+a random 1,042,519 bp genome (the length of Chlamydia trachomatis
+D/UW-3/CX), 30x of 100 bp reads:
 
 - K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
   query in a 6,000 bp target, longer than one chunk of the kernel's rows);
-- `build` of error-free reads (about 281 Msym of index), `unpack` of 1,000
+- `build` of error-free reads (about 63 Msym of index), `unpack` of 1,000
   ids, and `exact` of 40,000 reads with 1% substitutions; the first 128
   queries are searched again on the CPU and must give the same SMEM tuples;
   then K1 on uniform keys at the shape of a loop step, K1 on the keys of
@@ -53,11 +53,11 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   12.5 kbp window of both genomes (the blocked builder in two blocks), on
   the card and on the CPU: equal;
 - `run -t 8 -k 50`, the unpaired pipeline (run-fermi.pl) from the noisy
-  reads of the genome's first 1 Mbp (FASTQ) to p2.mag.gz: seconds by
+  reads of the genome's first 500 kbp (FASTQ) to p2.mag.gz: seconds by
   stage, and p2's unitigs, N50 and share of bases in unitigs found exactly
   in the genome (at least 99%); `run` of the 12.5 kbp window's reads on the
   card and on the CPU, every artifact equal;
-- `chkbwt -r` of the 281 Msym index (K1 at every position against a
+- `chkbwt -r` of the 63 Msym index (K1 at every position against a
   running count), and of a copy with one run corrupted, which must fail;
 - `exact` of 200 queries of 2,000 bp (the native long-query engine) with
   the index on the card and on the CPU: equal bytes;
@@ -78,7 +78,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
 - `example -e -c` of the 12.5 kbp window's reads on the card and on the
   CPU: equal;
 - the dp×tp layer (ranks are processes): two ranks sharing the card over
-  gloo, the 281 Msym index split tp=2 (each rank restores the whole
+  gloo, the 63 Msym index split tp=2 (each rank restores the whole
   `.fmd` on the host and keeps its half of the rank rows on the card),
   ShardedSMEM of the first 2,048 `exact` queries equal to the
   single-process port's; the same through a world of one over NCCL;
@@ -91,7 +91,7 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   equal to theirs on the CPU;
 - `-M`, out of core on the host, over the files above, each call held to
   launch no kernel and allocate nothing on the card: the .fmd.blk record
-  cache of the 281 Msym index (seconds, size); `exact -M` of the first
+  cache of the 63 Msym index (seconds, size); `exact -M` of the first
   4,096 queries equal to the card's `exact` of them, with reads/s and each
   call's peak RSS in a child process; `unpack -M` of the 1,000 ids;
   `seqsort -M -t 8` of the corrected index equal to its .rank; `correct -M
@@ -101,6 +101,16 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   `chkbwt -M -r` of the index and of a corrupted copy; `remap -M -r` of
   the pairs window equal to `remap`; `fm_append_streaming` of the fourth
   part onto the merge of three, equal to `build` of all the reads;
+- reads past 1 kbp: 20x of reads of 1,000-8,000 bp (uniform, 0.1%
+  substitutions, half reverse-complemented) of genome P's first 500 kbp
+  (about 2,200 reads, an index of about 20 Msym), `build`, `seqsort`
+  equal to the host engine
+  `seqsort_native`, `unitig -l 100 -r` equal to the native host walk
+  `fm6_unitig_native(..., 1)` (run beside it), with N50 and the share of
+  unitig bases found exactly in genome P, and `retrieve_mates` of 4,096
+  reads equal to the host walk of the mapped .fmd; seconds and K1
+  launches by call, the longest walk, the route unitig took, the device
+  peak;
 - the wide index tier, last, at the size of fermi_tpu's own 2.26 Gsym run
   (scripts/uint32_run.py): 5.6 M pairs of 2 x 100 bp from a random 44.8
   Mbp genome (25x, insert 300 +- 30, 0.5% substitutions) as FASTQ, the
@@ -110,7 +120,11 @@ a random 4,641,652 bp genome (the length of E. coli K-12 MG1655), 30x of
   scan, `exact` of 20,000 matched reads byte-equal to the native engine and
   to `exact -M`, `unpack` of 1,000 ids against the reads; seconds by part,
   device and host peaks; K1 at the main path's shape on the wide rows, and
-  one 4,096-read batch's K1 time against its wall time and idle share.
+  one 4,096-read batch's K1 time against its wall time and idle share;
+  then the same resident arrays without fused rows (the layout past 2^32
+  - 128 symbols, K1's `rank_block_counts` on gathered rows): rank6 at the
+  64 positions against the host scan and `exact` of the first 4,096 reads
+  byte-equal to the fused index's.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -132,6 +146,7 @@ non-zero; so does a machine without CUDA.
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -145,16 +160,18 @@ import time
 import numpy as np
 import torch
 
-GENOME_LEN = 4_641_652          # E. coli K-12 MG1655
+T_START = time.perf_counter()
+
+GENOME_LEN = 1_042_519          # Chlamydia trachomatis D/UW-3/CX
 READ_LEN = 100
-N_READS = 1_392_496             # 30x
+N_READS = 312_756               # 30x
 N_UNPACK = 1000
 N_CROSS = 512                   # exact queries before the profiled batch
 N_SW_PAIRS = 65_536
 N_CROSS_CPU = 128               # of them, searched again on the CPU
 N_FIX_SUB = 16_384              # reads of the host-vs-device fix rerun
 CROSS_WINDOW = 12_500           # genome bp whose reads the CPU re-checks
-RUN_GENOME = 1_000_000          # genome bp whose noisy reads `run` takes
+RUN_GENOME = 500_000            # genome bp whose noisy reads `run` takes
 SETOPS_WINDOW = 12_500          # the same for merge, sub, contrast, builders
 PAIRS_WINDOW = 100_000          # genome bp of remap's read pairs
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -194,6 +211,8 @@ K2_OPS_PER_CELL = {"alu": 6, "add": 2, "popc": 0}
 
 
 def log(tag, **kv):
+    """One phase's line, with the seconds since the script started."""
+    kv["at_s"] = time.perf_counter() - T_START
     print(f"[{tag}] " + json.dumps(kv), flush=True)
 
 
@@ -246,11 +265,31 @@ def graph_ms(fns, replays=3):
     return a.elapsed_time(b) / (replays * len(fns))
 
 
+def device_records(prof):
+    """(name, µs) of every device record of a finished torch.profiler run,
+    read from its raw (kineto) results: prof.events() would first parse
+    every record into a function event, which took over a minute for one
+    `exact` batch profiled with its host operators."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def device_us_by_name(prof):
+    """Device µs by kernel name, and the number of device records."""
+    recs = device_records(prof)
+    by_name = {}
+    for name, us in recs:
+        by_name[name] = by_name.get(name, 0) + us
+    return by_name, len(recs)
+
+
 def cupti_ms(fns, kernel):
     """Device time per call of fns[0](), fns[1](), ... read from the
     profiler's (CUPTI) record of the kernels whose name holds `kernel`:
     (mean over the records found, their count; it should be len(fns))."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
@@ -260,8 +299,7 @@ def cupti_ms(fns, kernel):
         for f in fns:
             f()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    us = [t for name, t in device_records(prof) if kernel in name]
     return (sum(us) / 1e3 / len(us) if us else "not measured"), len(us)
 
 
@@ -339,7 +377,9 @@ def block_counts_bound_ms(off, clock_hz):
 def k1_parity(rng, dev, clock_hz, n=1 << 20):
     """Both K1 entry points against the plain version on the card, on n
     random rows; keys cover every offset, occ patterns >= 2^31 in the int64
-    domain.  Returns the largest absolute difference (must be 0)."""
+    domain.  Returns the largest absolute difference (must be 0) and
+    rank_block_counts' figures for the kernels line (device ms, host call
+    ms, plain ms, bound ms and what sets it)."""
     from fermi_tpu_torch.ops import rank_cuda as rc
 
     words = torch.from_numpy(random_rows(rng, n)).to(dev)
@@ -348,10 +388,14 @@ def k1_parity(rng, dev, clock_hz, n=1 << 20):
     got = rc.rank_block_counts(words, off)
     want = rc.rank_block_counts_plain(words, off)
     err = max(err, int((got - want).abs().max()))
+    bound, bound_by = block_counts_bound_ms(off, clock_hz)
     out = {"rank_block_counts": (
         graph_ms([lambda: rc.rank_block_counts(words, off)] * 8),
-        call_ms(lambda: rc.rank_block_counts_plain(words, off)),
-        block_counts_bound_ms(off, clock_hz)[0])}
+        call_ms(lambda: rc.rank_block_counts_plain(words, off)), bound)}
+    counts = dict(ms=out["rank_block_counts"][0],
+                  call_ms=call_ms(lambda: rc.rank_block_counts(words, off)),
+                  plain_ms=out["rank_block_counts"][1], bound_ms=bound,
+                  bound_by=bound_by, max_abs_err=err)
     fused = torch.zeros((n, 24), dtype=torch.int32, device=dev)
     fused[:, :16] = words
     for name, dt, occ_hi in (("int32", torch.int32, 2**31 - 2**20),
@@ -382,7 +426,7 @@ def k1_parity(rng, dev, clock_hz, n=1 << 20):
         library_note="no single PyTorch call computes a masked nibble rank")
     if err:
         raise AssertionError(f"K1 differs from its plain version: {err}")
-    return err
+    return err, counts
 
 
 def sample_reads(rng, genome, n, err=0.0):
@@ -764,7 +808,6 @@ def profile_exact(idx, seqs, keys=None, tag="profile_exact"):
     place of the search's own, which differ only in the dead slots: the
     same search and kernels, dead slots at fermi_tpu's spread instead of 0.
     Returns the SMEM tuples and the figures logged."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fermi_tpu_torch.ops import rank_cuda as rc
@@ -795,16 +838,10 @@ def profile_exact(idx, seqs, keys=None, tag="profile_exact"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = rc.LAUNCHES["rank6_fused"] - before
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    dev_us = {}                                  # device time by kernel
-    n_dev = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev_us[e.name] = dev_us.get(e.name, 0) + e.time_range.elapsed_us()
-            n_dev += 1
+    dev_us, n_dev = device_us_by_name(prof)      # device time by kernel
     busy = sum(dev_us.values()) / 1e6
     k1 = sum(t for key, t in dev_us.items() if "rank6_fused" in key) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
@@ -1296,7 +1333,6 @@ def profile_unitig(fmd, dev, n=1 << 16, min_match=50):
     busy time, the kernels a round (walk and get_nei rounds) and K1's
     device time.  The idle share is 1 - device busy time / unprofiled
     wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fermi_tpu_torch.index.fmd import FMDIndex
@@ -1304,7 +1340,7 @@ def profile_unitig(fmd, dev, n=1 << 16, min_match=50):
     from fermi_tpu_torch.search.extend import retrieve_strings
 
     idx = FMDIndex.restore(fmd, dev)
-    seqs, _ = retrieve_strings(idx, np.arange(n), max_len=1024)
+    seqs, _ = retrieve_strings(idx, np.arange(n))
 
     def run():
         return ul.compute_links_device(idx, seqs, min_match, device=dev)
@@ -1316,15 +1352,10 @@ def profile_unitig(fmd, dev, n=1 << 16, min_match=50):
     wall = time.perf_counter() - t0
     st = dict(ul.STATS)
     rounds = st["walk_rounds"] + st["getnei_rounds"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    dev_us, n_dev = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev_us[e.name] = dev_us.get(e.name, 0) + e.time_range.elapsed_us()
-            n_dev += 1
+    dev_us, n_dev = device_us_by_name(prof)
     busy = sum(dev_us.values()) / 1e6
     k1 = sum(t for key, t in dev_us.items() if "rank6_fused" in key) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
@@ -1392,7 +1423,7 @@ def cross_check_unitig(workdir, fmd, rank, dev, min_match=50):
     st = dict(ul.STATS)
     t0 = time.perf_counter()
     idx = FMDIndex.restore(fmd, "cpu")
-    seqs, ks = retrieve_strings(idx, np.arange(idx.n_seqs), max_len=1024)
+    seqs, ks = retrieve_strings(idx, np.arange(idx.n_seqs))
     store = ul.compute_links_device(idx, seqs, min_match, device="cpu")
     srt = np.fromfile(rank, np.uint64)
     for use in (False, True):
@@ -1884,7 +1915,7 @@ def corrupt_copy(fmd, path):
 
 
 def chkbwt_phase(workdir, fmd, dev):
-    """`chkbwt -r` of the 281 Msym index on `dev` (K1 at every position
+    """`chkbwt -r` of the main path's index on `dev` (K1 at every position
     against a running count): it must pass; then of a copy with one run
     corrupted, which must exit 1."""
     from fermi_tpu_torch.cli.main import main
@@ -1981,7 +2012,7 @@ def remap_pairs_phase(rng, workdir, genome, dev, window=PAIRS_WINDOW,
 
 
 # slice 7: the paired chain on genome P
-N_PAIRS = 696_248               # 30x of 2 x 100 bp pairs
+N_PAIRS = 156_378               # 30x of 2 x 100 bp pairs
 INSERT, INSERT_SD = 300, 20
 # short interspersed repeat families (bp, exact copies), as a bacterial
 # genome's REP/BIME and IS elements
@@ -2079,7 +2110,7 @@ def paired_phase(rng, workdir, genome, dev, unitig_k=50):
     exactly in genome P; scaf must examine a gap and launch K1.  Then `run
     -P` of the pairs of a PAIRED_WINDOW bp window holding at least four
     repeat copies, on `dev` and on the CPU: every artifact equal,
-    decompressed.  Returns the K1 launches of the full run."""
+    decompressed.  Returns the K1 launches of the full run and genome P."""
     from fermi_tpu_torch.algos import scaf
 
     t0 = time.perf_counter()
@@ -2170,7 +2201,7 @@ def paired_phase(rng, workdir, genome, dev, unitig_k=50):
         artifacts=len(PAIRED_ARTIFACTS), equal=True, p4_scaftigs=len(w4),
         scaf_gaps=scaf.STATS["gaps"], device_seconds=secs[str(dev)],
         cpu_seconds=secs["cpu"])
-    return k1
+    return k1, gp
 
 
 def example_phase(workdir, win_fq, dev):
@@ -2306,7 +2337,7 @@ def all_reduce_ms(dev, group, reps=10):
 
 def dist_phase(rng, workdir, fmd, q_fa, dev):
     """The dp×tp layer on the card at the cell's size: (a) two ranks on
-    cuda:0 over gloo, the 281 Msym index split tp=2, ShardedSMEM of the
+    cuda:0 over gloo, the main path's index split tp=2, ShardedSMEM of the
     first N_DIST_QUERIES `exact` queries, equal to the single-process
     port's smem_all; (b) the same queries through a world of one over
     NCCL; (c) dp=2, fm_merge_sharded of two of the four parts of
@@ -2501,7 +2532,7 @@ def mag_ends_mass(path):
 def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
     """`-M` on the host, over the files of the earlier phases, each call
     held to launch no kernel and allocate nothing on the card: the record
-    cache of the 281 Msym index; `exact -M` of the first N_OOC_QUERIES
+    cache of the main path's index; `exact -M` of the first N_OOC_QUERIES
     queries equal to the card's `exact` of them, with each call's peak RSS
     in a child process; `unpack -M` of [unpack]'s ids; `seqsort -M`,
     `correct -M` of the fix rerun's reads and `unitig -M -r` (one thread on
@@ -2633,6 +2664,177 @@ def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
         phase_seconds=time.perf_counter() - t_phase)
     if not all(eq.values()):
         raise AssertionError(f"-M differs: {eq}")
+
+
+# slice 11: reads past 1 kbp, of genome P
+LONG_GENOME = 500_000           # genome-P bp read (a cut: PERF.md §4)
+LONG_COVERAGE = 20              # PacBio-CCS-like reads of that stretch
+LONG_LEN = (1000, 8000)         # read lengths, uniform, bp
+LONG_ERR = 0.001                # substitutions
+LONG_MIN_MATCH = 100            # unitig -l
+N_LONG_MATES = 4096             # reads walked by retrieve_mates
+
+
+def long_reads(rng, genome, path):
+    """LONG_COVERAGE x of reads of `genome` (nt4 codes), lengths uniform in
+    LONG_LEN, LONG_ERR substitutions, half reverse-complemented, as FASTA
+    records >r0, >r1, ...  Returns the read lengths."""
+    n = int(len(genome) * LONG_COVERAGE * 2 // sum(LONG_LEN))
+    lens = rng.integers(LONG_LEN[0], LONG_LEN[1] + 1, n)
+    pos = rng.integers(0, len(genome) - lens + 1)
+    flip = rng.random(n) < 0.5
+    with open(path, "wb") as f:
+        for i in range(n):
+            r = genome[pos[i]: pos[i] + lens[i]].astype(np.int64)
+            err = np.flatnonzero(rng.random(lens[i]) < LONG_ERR)
+            r[err] = (r[err] + rng.integers(1, 4, err.size)) % 4
+            if flip[i]:
+                r = 3 - r[::-1]
+            f.write(b">r%d\n%s\n" % (i, ASCII[r].tobytes()))
+    return lens
+
+
+def blk_retrieve(blk, ids):
+    """The reads whose sentinels have ranks `ids`, forward, by LF walks on
+    the host over the .fmd.blk record cache (numpy over its mapped records,
+    no kernel and no torch): the oracle of the card's walks."""
+    wide = 256 if blk.wide else 192
+    raw = np.memmap(blk.path, np.uint8, "r", offset=4096)
+    raw = raw.reshape(blk.n_rows, wide)
+    odt = np.uint64 if blk.wide else np.uint32
+    cnt = np.asarray(blk.cnt, np.int64)
+    k = np.asarray(ids, np.int64).copy()
+    lane = np.arange(k.size)
+    col = np.arange(128)
+    walked_lane, walked_sym = [], []
+    while lane.size:
+        rows = raw[k >> 7]
+        off = k & 127
+        c = rows[np.arange(lane.size), off].astype(np.int64)
+        occ = rows[:, 128: 128 + 6 * odt().itemsize].copy().view(odt)
+        within = ((rows[:, :128] == c[:, None]) & (col < off[:, None])).sum(1)
+        kp = cnt[c] + occ[np.arange(lane.size), c].astype(np.int64) + within
+        go = c != 0
+        walked_lane.append(lane[go])
+        walked_sym.append(c[go])
+        k, lane = kp[go], lane[go]
+    lanes = np.concatenate(walked_lane) if walked_lane else np.zeros(0, int)
+    syms = np.concatenate(walked_sym) if walked_sym else np.zeros(0, int)
+    order = np.argsort(lanes, kind="stable")
+    parts = np.split(syms[order].astype(np.uint8),
+                     np.cumsum(np.bincount(lanes, minlength=len(ids)))[:-1])
+    return [p[::-1] for p in parts]
+
+
+def long_reads_phase(rng, workdir, gp, dev, min_match=LONG_MIN_MATCH):
+    """Reads past 1 kbp through the port on `dev`: LONG_COVERAGE x of reads
+    of 1-8 kbp of genome P's first LONG_GENOME bp, `build`, `seqsort`
+    (walks of up to 8 kbp, past fermi_tpu's device walk's 4,096 steps)
+    equal to the host engine
+    `seqsort_native` over the record cache, `unitig -l 100 -r` (link
+    records of reads past the 10-bit key's 1,023 bp, the card's route)
+    equal to the native host walk `fm6_unitig_native(..., 1)`, with N50 and
+    the share of unitig bases found exactly in genome P, and
+    `retrieve_mates` of N_LONG_MATES reads (walks past the first bound of
+    1,024, the bound doubling) equal to the host walk of the .fmd.blk
+    record cache.
+    Seconds and K1 launches by call, the longest walk, the device peak.
+    Every equality is a gate.  Returns K1's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fermi_tpu_torch.algos.scaf import retrieve_mates
+    from fermi_tpu_torch.algos.seqsort import seqsort_native
+    from fermi_tpu_torch.algos.unitig import fm6_unitig_native
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import unitig_links as ul
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    gp = gp[:LONG_GENOME]
+    wd = os.path.join(workdir, "long")
+    os.makedirs(wd)
+    secs, k1 = {}, {}
+    fa, fmd = os.path.join(wd, "long.fa"), os.path.join(wd, "long.fmd")
+    rank, mag = os.path.join(wd, "long.rank"), os.path.join(wd, "long.mag")
+    t0 = time.perf_counter()
+    lens = long_reads(rng, gp, fa)
+    secs["data"] = time.perf_counter() - t0
+    dv = ["--device", str(dev)]
+    reset_peak(dev)
+
+    def card_call(name, argv, out_path=None):
+        reset_launches()
+        secs[name], text, _ = run_cli(argv, out_path)
+        k1[name] = launches()["rank6_fused"]
+        return text
+    card_call("build", ["build", *dv, "-fo", fmd, fa])
+    card_call("seqsort", ["seqsort", *dv, fmd], rank)
+    blk, secs["ensure_blk"] = host_only(
+        "ensure_blk", lambda: ensure_blk(fmd, n_threads=OOC_THREADS))
+    want_rank, secs["seqsort_native"] = host_only(
+        "seqsort_native", lambda: seqsort_native(blk, OOC_THREADS, False))
+    if not np.array_equal(np.fromfile(rank, np.uint64), want_rank):
+        raise AssertionError("long reads: seqsort != seqsort_native")
+    # the oracle's one-thread walk runs beside the card's call (ctypes
+    # lets go of the interpreter lock)
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        oracle = pool.submit(fm6_unitig_native, blk, min_match, want_rank,
+                             1)
+        oracle.add_done_callback(lambda _: secs.__setitem__(
+            "unitig_native", time.perf_counter() - t0))
+        card_call("unitig", ["unitig", *dv, "-l", str(min_match), "-r",
+                             rank, fmd], mag)
+        st = dict(ul.STATS)
+        want_mag = oracle.result()
+    with open(mag) as f:
+        if f.read() != want_mag:
+            raise AssertionError("long reads: unitig != fm6_unitig_native")
+    del want_mag
+    t0 = time.perf_counter()
+    utg = mag_seqs(mag)
+    share = GenomeIndex(gp).exact_share(utg)
+    secs["unitig_check"] = time.perf_counter() - t0
+
+    idx = FMDIndex.restore(fmd, dev)
+    ids = np.sort(rng.choice(idx.n_seqs, min(N_LONG_MATES, idx.n_seqs),
+                             replace=False))
+    ids = ids.tolist()
+    reset_launches()
+    t0 = time.perf_counter()
+    mates = retrieve_mates(idx, ids)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    secs["mates"] = time.perf_counter() - t0
+    k1["mates"] = launches()["rank6_fused"]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+    del idx
+    host, secs["mates_host"] = host_only(
+        "blk retrieve", lambda: blk_retrieve(blk, ids))
+    if any(mates[x] != s.tobytes() for x, s in zip(ids, host)):
+        raise AssertionError("long reads: retrieve_mates != the host walk")
+    if on_card and min(k1[n] for n in ("seqsort", "unitig", "mates")) < 1:
+        raise AssertionError(f"long reads: a walk launched no K1: {k1}")
+    longest = max(len(s) for s in mates.values())
+    shutil.rmtree(wd)
+    log("long_reads", reads=int(lens.size), genome_bp=len(gp),
+        read_bp_min=int(lens.min()), read_bp_max=int(lens.max()),
+        read_bp_mean=float(lens.mean()), symbols=int(blk.total),
+        seconds=secs, k1_launches=k1, unitig_route="card",
+        seqsort_walk_steps=int(lens.max()) + 1,
+        mate_walk_steps=longest + 1, mates=len(ids),
+        unitig_walk_rounds=st["walk_rounds"],
+        unitig_get_nei_rounds=st["getnei_rounds"],
+        unitig_ladder_rows=st["ladder_rows"],
+        unitig_redo_left=st["redo_left"], unitig_unique=st["unique"],
+        **{f"unitig_{k}": st[k] for k in ("retrieve_s", "walk_s", "getnei_s",
+                                          "ladder_s", "stitch_s")},
+        **{f"p0_{k}": v for k, v in assembly_stats(utg).items()},
+        p0_exact_share=share, seqsort_equal=True, unitig_equal=True,
+        mates_equal=True, device_peak_gb=peak,
+        phase_seconds=time.perf_counter() - t_phase)
+    return sum(k1.values())
 
 
 # slice 10: the wide index tier at the size of fermi_tpu's own 2.26 Gsym
@@ -2799,7 +3001,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
         rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
     got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
-    want = np.zeros((len(ks), 6), np.int64)
+    scan = np.zeros((len(ks), 6), np.int64)
     acc = np.zeros(6, np.int64)
     prev = 0
     for t, k in enumerate(ks):
@@ -2807,9 +3009,9 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         for a in range(prev, k, 1 << 20):
             acc += np.bincount(flat[a: min(k, a + (1 << 20))],
                                minlength=6)[:6]
-        want[t] = acc
+        scan[t] = acc
         prev = k
-    spots_ok = int((got == want).all(1).sum())
+    spots_ok = int((got == scan).all(1).sum())
     secs["rank_spots"] = time.perf_counter() - t0
     out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
                rank_spots_past_2_31=int((ks >= 2**31).sum()))
@@ -2841,7 +3043,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     # x is odd
     ids = np.sort(rng.choice(idx.n_seqs, N_UNPACK, replace=False))
     (got, _), secs["unpack"], _ = timed(
-        dev, lambda: se.retrieve_strings(idx, ids, max_len=1 << 16))
+        dev, lambda: se.retrieve_strings(idx, ids))
     for x, s in zip(ids, got):
         r = reads[x // 2] + 1
         want = r if x % 2 == 0 else (5 - r)[::-1]
@@ -2882,13 +3084,43 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     log("wide_3a", k1_graph_s=k1_s, wall_s=prof["wall_s"],
         k1_share_of_wall=share, idle_share=idle,
         decision="close" if close else "keep")
-    del idx, mems
+
+    # the same resident arrays without fused rows: the layout past 2^32 -
+    # 128 symbols (and fermi_tpu's past 2^31), rank6 by a row gather, K1's
+    # rank_block_counts and the occ row
+    unfused = dataclasses.replace(idx, fused=None)
+    n_uf = min(WIDE_PROFILED, len(seqs))
+    reset_launches()
+    t0 = time.perf_counter()
+    uf_ranks = unfused.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
+    uf_mems = sm.smem_all(unfused, seqs[:n_uf])
+    secs["unfused_exact"] = time.perf_counter() - t0
+    uf_k1 = launches()
+    fused_text, uf_text = io.StringIO(), io.StringIO()
+    write_exact(idx, names[:n_uf], seqs[:n_uf], mems[:n_uf], fused_text)
+    write_exact(unfused, names[:n_uf], seqs[:n_uf], uf_mems, uf_text)
+    uf_spots = int((uf_ranks == scan).all(1).sum())
+    out.update(unfused_queries=n_uf, unfused_rank_spots_exact=uf_spots,
+               unfused_k1_block_counts=uf_k1["rank_block_counts"],
+               unfused_k1_fused=uf_k1["rank6_fused"])
+    log("wide_unfused", queries=n_uf, seconds=secs["unfused_exact"],
+        rank_spots=len(ks), rank_spots_exact=uf_spots,
+        exact_bytes_equal=uf_text.getvalue() == fused_text.getvalue(),
+        k1_rank_block_counts=uf_k1["rank_block_counts"],
+        k1_rank6_fused=uf_k1["rank6_fused"])
+    if uf_spots != len(ks) or uf_text.getvalue() != fused_text.getvalue():
+        raise AssertionError("wide: the unfused rows disagree with the "
+                             "fused rows or the host scan")
+    if on_card and (uf_k1["rank_block_counts"] < 1
+                    or uf_k1["rank6_fused"] != 0):
+        raise AssertionError(f"wide: the unfused query's launches: {uf_k1}")
+    del idx, unfused, mems, uf_mems
     torch.cuda.empty_cache()
     shutil.rmtree(wd)
     log("wide", pairs=n_pairs, seconds=secs, k1_launches=k1,
         k1_main_shape_ms=k1_main["ms"], k1_main_shape_bound_ms=k1_main[
             "bound_ms"], **out, phase_seconds=time.perf_counter() - t_phase)
-    return k1
+    return k1, uf_k1["rank_block_counts"]
 
 
 def ptxas_report(jobs):
@@ -2960,7 +3192,7 @@ def main():
         k2_ops_per_cell=K2_OPS_PER_CELL)
 
     rng = np.random.default_rng(args.seed)
-    err = k1_parity(rng, dev, clock_hz)
+    err, block_counts = k1_parity(rng, dev, clock_hz)
     k2 = k2_phase(rng, dev, clock_hz, against)
     with tempfile.TemporaryDirectory() as workdir:
         res = main_path(rng, workdir, dev, GENOME_LEN, N_READS, args.queries)
@@ -2990,8 +3222,8 @@ def main():
         rp = remap_pairs_phase(np.random.default_rng(args.seed + 2),
                                workdir, res["genome"], dev)
         # slice 7, from a stream of its own too
-        k1_paired = paired_phase(np.random.default_rng(args.seed + 3),
-                                 workdir, res["genome"], dev)
+        k1_paired, gp = paired_phase(np.random.default_rng(args.seed + 3),
+                                     workdir, res["genome"], dev)
         k1_example = example_phase(workdir, ec_res["win_fq"], dev)
         setops = [builders_phase(workdir, res, dev),
                   merge_phase(workdir, res, dev),
@@ -3006,13 +3238,16 @@ def main():
         # slice 9: -M, out of core on the host, over the files above
         outofcore_phase(workdir, dev, res, ec_res, ss, ut,
                         (win_fmd, win_rank, win_unitig), rp)
+        # slice 11: reads past 1 kbp, from a stream of its own
+        k1_long = long_reads_phase(np.random.default_rng(args.seed + 6),
+                                   workdir, gp, dev)
         # slice 10: the wide index tier, from a stream of its own
-        k1_wide = wide_phase(np.random.default_rng(args.seed + 5), workdir,
-                             dev, res["maxi"], clock_hz)
+        k1_wide, k1_unfused = wide_phase(np.random.default_rng(args.seed + 5),
+                                         workdir, dev, res["maxi"], clock_hz)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]
                    + ss["k1_launches"] + ut["k1_launches"]
                    + run["k1_launches"] + k1_chkbwt + sum(setops)
-                   + k1_paired + k1_example + k1_dist + k1_wide)
+                   + k1_paired + k1_example + k1_dist + k1_long + k1_wide)
     log("total", seconds=time.perf_counter() - t_script)
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
@@ -3022,6 +3257,11 @@ def main():
         "launches": k1_launches,
         "max_abs_err": max(err, k1["max_abs_err"]),
         **{key: k1[key] for key in keys}, "library_ms": None}, {
+        "name": "rank_block_counts", "route": "cuda",
+        "source": "fermi_tpu_torch/csrc/rank.cu",
+        "replaces": "fermi_tpu/ops/rank_pallas.py:49",
+        "launches": k1_unfused, "max_abs_err": block_counts["max_abs_err"],
+        **{key: block_counts[key] for key in keys}, "library_ms": None}, {
         "name": "sw_score_batch", "route": "cuda",
         "source": "fermi_tpu_torch/csrc/sw.cu",
         "replaces": "fermi_tpu/ops/sw_pallas.py:59",

@@ -269,7 +269,11 @@ class Mag:
                 for a in r:
                     if edge_is_del(a):
                         continue
-                    if a[1] < min_ovlp or a[1] / max_ovlp < min_ratio:
+                    # mag.c divides as doubles: an overlap over a maximum
+                    # of 0 (a tip's, reset to min_ovlp 0) is inf, never
+                    # below min_ratio (fermi_tpu raises ZeroDivisionError)
+                    if a[1] < min_ovlp or (max_ovlp != 0 and
+                                           a[1] / max_ovlp < min_ratio):
                         self.eh_markdel(a[0], p.k[j])
                         edge_mark_del(a)
 

@@ -40,9 +40,9 @@ from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
 from fermi_tpu_torch.core import dna
 from fermi_tpu_torch.search import extend
 
-# the longest read a mate walk may retrieve: a walk cut at this bound raises
-MATE_MAX_LEN = 1024
-MATE_CHUNK = 1 << 16    # mate reads retrieved in one batch of walks
+# a mate walk's first bound (a longer read walks on, the bound doubling)
+MATE_BOUND = 1024
+MATE_CHUNK = 1 << 16    # mate reads retrieved in one batch of walks, at most
 
 STATS = {}
 
@@ -517,25 +517,14 @@ def mate_ids(h, v, gaps):
     return sorted(ids)
 
 
-def retrieve_mates(index, ids, max_len=MATE_MAX_LEN, chunk=MATE_CHUNK):
+def retrieve_mates(index, ids, bound=MATE_BOUND, chunk=MATE_CHUNK):
     """{sentinel rank: forward nt6 bytes} of reads `ids` of the device
-    index, by batched LF walks (search/extend.retrieve, kernel K1 on the
-    card), `chunk` reads at a time.  A read longer than max_len raises."""
-    out = {}
-    for lo in range(0, len(ids), chunk):
-        part = ids[lo: lo + chunk]
-        x = torch.tensor(part, dtype=torch.int64, device=index.device)
-        # one step past the bound: a read of max_len symbols ends there
-        seq_rev, length, _ = extend.retrieve(index, x, max_len + 1)
-        length = length.cpu().numpy()
-        if (length > max_len).any():
-            bad = part[int(np.argmax(length > max_len))]
-            raise ValueError(f"scaf: read at sentinel rank {bad} is longer "
-                             f"than the mate walk's bound of {max_len}")
-        seq_rev = seq_rev.cpu().numpy()
-        for i, r in enumerate(part):
-            out[r] = seq_rev[i, :length[i]][::-1].tobytes()
-    return out
+    index, by batched LF walks to their sentinels (search/extend.
+    retrieve_strings, kernel K1 on the card), at most `chunk` reads at a time
+    and fewer as the bound doubles past `bound`, so that a batch's
+    sequence buffer stays under extend.WALK_BUFFER_BYTES."""
+    seqs, _ = extend.retrieve_strings(index, ids, bound, chunk)
+    return {r: s.tobytes() for r, s in zip(ids, seqs)}
 
 
 def patch_gap(mates, h, v, iddp, iddq, max_dist, avg, std, device):

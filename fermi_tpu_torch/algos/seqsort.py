@@ -56,10 +56,11 @@ def _report(sorted_arr):
         f"[M::seqsort] #zeros={zeros}, #contained={ncont}, #duplicates={ndup}\n")
 
 
-def seqsort(index: FMDIndex, batch: int = 32768, max_len: int = 1 << 12,
+def seqsort(index: FMDIndex, batch: int = 32768,
             verbose: bool = True) -> np.ndarray:
     """The .rank array: uint64 [n_seqs], entry k = id << 2 | flags of the
-    sequence whose sentinel has rank k."""
+    sequence whose sentinel has rank k.  Every walk runs to its sentinel,
+    whatever the read's length."""
     n_seqs = index.n_seqs
     sorted_arr = np.zeros(n_seqs, np.uint64)
     ids = np.arange(0, n_seqs, 2, dtype=np.int64)
@@ -68,7 +69,7 @@ def seqsort(index: FMDIndex, batch: int = 32768, max_len: int = 1 << 12,
         x = torch.from_numpy(chunk).to(index.device)
         k, kb, kf, sz, contained = (
             a.cpu().numpy().astype(np.int64)
-            for a in seqrank_walk(index, x, max_len))
+            for a in seqrank_walk(index, x))
         flag = ((contained != 0).astype(np.uint64) << 1) | \
                ((sz > 1) & (k != kb)).astype(np.uint64)
         i64 = chunk.astype(np.uint64)

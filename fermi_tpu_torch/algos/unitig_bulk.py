@@ -112,13 +112,7 @@ def fm6_unitig_device(index, min_match, out_fp, sorted_arr=None,
 
     n = int(index.n_seqs)
     t0 = time.perf_counter()
-    seqs, own_ks = [], np.zeros(n, np.int64)
-    rb = 1 << 16
-    for b0 in range(0, n, rb):
-        ids = np.arange(b0, min(b0 + rb, n), dtype=np.int64)
-        ss, ks = retrieve_strings(index, ids, max_len=1 << 10)
-        seqs.extend(ss)
-        own_ks[b0:b0 + len(ids)] = ks
+    seqs, own_ks = retrieve_strings(index, np.arange(n))
     t_retrieve = time.perf_counter() - t0
     log(f"retrieve {n} seqs: {t_retrieve:.1f}s")
     store = compute_links_device(index, seqs, min_match, verbose=verbose,

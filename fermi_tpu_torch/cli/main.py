@@ -127,7 +127,9 @@ def cmd_unpack(args):
         idx = FMDIndex.restore(args.fmd, resolve_device(args.device))
 
         def walk(chunk):
-            return se.retrieve_strings(idx, chunk, max_len=1 << 16)
+            # to the sentinel, whatever the length (fermi_tpu stops at
+            # 2^16 symbols)
+            return se.retrieve_strings(idx, chunk)
     n = idx.n_seqs
     ids = [i for i in args.ids if i < n] if args.ids else range(n)
     ids = np.fromiter(ids, dtype=np.int64)
@@ -262,7 +264,9 @@ def _chkbwt_mmap(args):
     cache checked against itself (each block's occ row against the running
     counts of the blocks before it) and, once a chunk of rows, against a
     rank query in the compressed domain of the mapped .fmd (fermi_tpu's
-    `chkbwt -M`)."""
+    `chkbwt -M`).  A .fmd whose runs hold another number of symbols than
+    its header gets no cache and exits 1, where fermi_tpu caches the
+    header's first n symbols and passes (fault F4)."""
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.index.blkidx import ensure_blk
     from fermi_tpu_torch.index.mmapfmd import MmapIndex
@@ -270,7 +274,11 @@ def _chkbwt_mmap(args):
     m = MmapIndex(args.fmd)
     mc = ", ".join(str(int(x)) for x in m.mcnt)
     sys.stderr.write(f"[M::chkbwt] marginal counts: ({mc})\n")
-    blk = ensure_blk(args.fmd)
+    try:
+        blk = ensure_blk(args.fmd)
+    except OSError as e:           # no record cache of a damaged index
+        sys.stderr.write(f"[E::chkbwt] {e}\n")
+        return 1
     rstride = 256 if blk.wide else 192
     odt = np.uint64 if blk.wide else np.uint32
     raw = np.memmap(blk.path, np.uint8, "r", offset=4096)

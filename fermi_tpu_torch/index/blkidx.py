@@ -50,6 +50,9 @@ def ensure_blk(fmd_path: str, blk_path: str | None = None,
         t = n_threads or min(os.cpu_count() or 1, 8)
         rc = native.get_lib().fmblk_build(fmd_path.encode(),
                                           blk_path.encode(), t)
+        if rc == -7:
+            raise OSError(f"{fmd_path}: its runs hold another number of "
+                          "symbols than its header (a damaged index)")
         if rc:
             raise OSError(f"fmblk_build({fmd_path}) failed rc={rc}")
     return BlkIndex(blk_path)

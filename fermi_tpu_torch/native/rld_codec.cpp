@@ -751,12 +751,28 @@ void* fmmap_open(const char* path, int64_t* info) {
   return e;
 }
 
+// Symbols held by the runs of RLD blocks [b0, b1) of a mapped .fmd.
+static uint64_t fmblk_run_symbols(const FmmapIndex* e, uint64_t b0,
+                                  uint64_t b1) {
+  uint64_t sum = 0;
+  RunCursor cur{e, 0, 0, 0, 64};
+  int64_t len;
+  int sym;
+  for (uint64_t b = b0; b < b1; ++b) {
+    cur.seek_block(b * e->ssize);
+    while (cur.next(&len, &sym)) sum += (uint64_t)len;
+  }
+  return sum;
+}
+
 // Build the blocked record cache (.fmd.blk) for a compressed .fmd,
 // streaming: the fmd stays an evictable read-only mapping, records are
 // emitted through a small per-thread buffer, so peak RSS is O(buffers)
 // regardless of index size.  Layout per fermi_native::Index / BlkHeader
 // (fmindex.h); the cache is the out-of-core `-M` form every native engine
 // can mmap (reference counterpart: rld_restore_mmap, rld.c:327-346).
+// The runs are counted first: when they hold another number of symbols
+// than the header's n, no cache is written and the result is -7.
 int fmblk_build(const char* fmd_path, const char* blk_path, int n_threads) {
   using fermi_native::BlkHeader;
   using fermi_native::kBlkHeaderBytes;
@@ -771,6 +787,28 @@ int fmblk_build(const char* fmd_path, const char* blk_path, int n_threads) {
   const int64_t n_rows = n_blocks + 1;
   const bool wide = (int64_t)total > (int64_t)UINT32_MAX;
   const int64_t rstride = wide ? 256 : 192;
+
+  if (n_threads < 1) n_threads = 1;
+  unsigned hw = std::thread::hardware_concurrency();
+  if (hw && n_threads > (int)hw) n_threads = (int)hw;
+  {
+    const uint64_t n_rld = (e->n_bytes / 8 + e->ssize - 1) / e->ssize;
+    const uint64_t per = (n_rld + n_threads - 1) / n_threads;
+    std::vector<uint64_t> sums(n_threads, 0);
+    std::vector<std::thread> th;
+    for (int t = 0; t < n_threads; ++t)
+      th.emplace_back([&, t]() {
+        uint64_t b0 = std::min(n_rld, t * per);
+        sums[t] = fmblk_run_symbols(e, b0, std::min(n_rld, b0 + per));
+      });
+    for (auto& x : th) x.join();
+    uint64_t runs_total = 0;
+    for (uint64_t v : sums) runs_total += v;
+    if (runs_total != total) {
+      fmmap_close(e);
+      return -7;
+    }
+  }
 
   BlkHeader hdr = {};
   memcpy(hdr.magic, kBlkMagic, 8);
@@ -793,9 +831,6 @@ int fmblk_build(const char* fmd_path, const char* blk_path, int n_threads) {
     return -3;
   }
 
-  if (n_threads < 1) n_threads = 1;
-  unsigned hw = std::thread::hardware_concurrency();
-  if (hw && n_threads > (int)hw) n_threads = (int)hw;
   int64_t rows_per = (n_rows + n_threads - 1) / n_threads;
   std::vector<int> rcs(n_threads, 0);
   auto body = [&](int t) {

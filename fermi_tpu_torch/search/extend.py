@@ -15,6 +15,10 @@ import torch
 from fermi_tpu_torch.index.fmd import FMDIndex
 
 SYNC_EVERY = 4
+# The [rows, bound] uint8 sequence buffer of one batch of retrieve_strings'
+# walks stays under this many bytes: the batch takes fewer rows as its
+# bound grows.
+WALK_BUFFER_BYTES = 1 << 26
 
 
 def multi_backward_search(indexes, q):
@@ -194,16 +198,21 @@ def retrieve2(index: FMDIndex, x: torch.Tensor, max_len: int):
     return (out, length, k) + _contained(index, k, kb, kf, sz)
 
 
-def seqrank_walk(index: FMDIndex, x: torch.Tensor, max_iters: int,
-                 unroll: int = 4):
+def seqrank_walk(index: FMDIndex, x: torch.Tensor,
+                 max_iters: int | None = None, unroll: int = 4):
     """retrieve2 minus the sequence buffer: LF-walk from sentinel rank x
     tracking only the full-read bi-interval — all seqsort needs
     (reference seqsort.c:12-35 calls fm6_retrieve but uses only the
     interval and flags).  The three per-step rank queries (LF symbol,
     interval start, interval end) go to the device as one rank6 call.
 
-    The loop condition is tested once per `unroll` steps, as in the JAX
-    version, so a lane may walk up to unroll-1 steps past max_iters.
+    With max_iters None every lane walks to its sentinel, however long its
+    read; no read is longer than the index, so a lane still live after
+    that many steps means a damaged index and raises.  With max_iters the
+    walk stops there, finished or not, as fermi_tpu's does.  The loop
+    condition is tested once per `unroll` steps, as in the JAX version, so
+    a lane may walk up to unroll-1 steps past max_iters; a finished lane
+    does not change.
 
     Returns (k, kb, kf, sz, contained) with retrieve2 semantics.
     """
@@ -218,7 +227,8 @@ def seqrank_walk(index: FMDIndex, x: torch.Tensor, max_iters: int,
     kf = torch.zeros_like(kb)
     sz = torch.zeros_like(kb)
     i = 0
-    while i < max_iters and not bool(done.all()):
+    cap = index.total + 1 if max_iters is None else max_iters
+    while i < cap and not bool(done.all()):
         for _ in range(max(1, unroll)):
             c = index.sym_at(k)
             ci = c.long()
@@ -254,14 +264,45 @@ def seqrank_walk(index: FMDIndex, x: torch.Tensor, max_iters: int,
             k = torch.where(done, k, kp)
             done = done | hit_end
             i += 1
+    if max_iters is None and not bool(done.all()):
+        raise RuntimeError(f"seqrank_walk: a walk passed {cap} steps, the "
+                           "index's length, without reaching a sentinel")
     return (k,) + _contained(index, k, kb, kf, sz)
 
 
-def retrieve_strings(index: FMDIndex, ids, max_len: int = 512):
-    """Host convenience: retrieve sequences as forward nt6 numpy arrays."""
-    ids = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=index.device)
-    seq_rev, lengths, k = retrieve(index, ids, max_len)
-    seq_rev = seq_rev.cpu().numpy()
-    lengths = lengths.cpu().numpy()
-    return ([seq_rev[i, :lengths[i]][::-1].copy() for i in range(len(ids))],
-            k.cpu().numpy())
+def retrieve_strings(index: FMDIndex, ids, bound: int = 1 << 10,
+                     rows: int = 1 << 16):
+    """Host convenience: reads `ids` as forward nt6 numpy arrays, each
+    walked to its sentinel whatever its length, and the sentinel ranks the
+    walks end at.  Every walk takes `bound` steps at first; the lanes still
+    live then go on from where they stopped for as many steps as they have
+    walked, so the bound doubles until every walk has ended (fermi_tpu's
+    retrieve_strings stops at its max_len).  A batch holds at most `rows`
+    lanes and WALK_BUFFER_BYTES of sequence buffer."""
+    ids = np.asarray(ids, dtype=np.int64)
+    seqs = [None] * len(ids)
+    parts = {}                                # live walks' pieces, reversed
+    at = ids.copy()                           # where a live walk resumes
+    todo = np.arange(len(ids))
+    step = walked = bound
+    while len(todo):
+        batch = max(1, min(rows, WALK_BUFFER_BYTES // step))
+        live = []
+        for lo in range(0, len(todo), batch):
+            sel = todo[lo: lo + batch]
+            seq_rev, length, k = (a.cpu().numpy() for a in retrieve(
+                index, torch.from_numpy(at[sel]).to(index.device), step))
+            at[sel] = k
+            for j, (i, n) in enumerate(zip(sel.tolist(), length.tolist())):
+                # a lane that emitted at every step has not met its sentinel
+                if n == step or i in parts:
+                    parts.setdefault(i, []).append(seq_rev[j, :n].copy())
+                else:
+                    seqs[i] = seq_rev[j, :n][::-1].copy()
+            live.append(sel[length == step])
+        todo = np.concatenate(live)
+        for i in parts.keys() - set(todo.tolist()):
+            seqs[i] = np.concatenate(parts.pop(i))[::-1].copy()
+        # the live lanes walk as far again: the bound doubles
+        step, walked = walked, 2 * walked
+    return seqs, at

@@ -26,6 +26,10 @@ Overflow of any fixed buffer (Jmax lanes, NMAX neighbors, SBMAX
 used-intervals, round budget) sets a per-row redo flag; rows still flagged
 after the wide ladder pass are recomputed exactly by the host stitch.  The
 records equal fermi_tpu's array for array (tests/test_torch_unitig.py).
+fermi_tpu packs a child lane's sort key in int32 with a 10-bit overlap
+offset and refuses reads of 1,024 bp or more; here the key is int64 with a
+32-bit offset, so reads of any length get their records (the MAG of long
+reads is fermi_tpu's host walk's, tests/test_torch_unitig.py).
 
 JAX's fori/while loops become Python loops over torch ops.  The walk runs
 exactly its batch's longest read; where fermi_tpu leaves the stale keys of
@@ -51,7 +55,14 @@ from fermi_tpu_torch.ops import rank_cuda
 NMAX = 16     # neighbor records per sequence
 SBMAX = 24    # used-bit interval records per sequence
 _I32MAX = 2 ** 31 - 1
-MAX_READ_LEN = 1023   # the child key packs the overlap offset in 10 bits
+# A child lane's sort key packs (category, base, overlap offset) into int64:
+# the offset in the low OFF_BITS bits, so a read of any length fits.
+OFF_BITS = 32
+_KEYMAX = 2 ** 63 - 1
+# The walk's [B, Lmax + 1] overlap buffers of one batch hold at most this
+# many cells (16 B each in the int32 domain): a batch of long reads takes
+# fewer rows.
+WALK_CELLS = 1 << 28
 
 # Counters of the last unitig run, for measurement (the chip smoke test
 # reads them): seconds by part, unique sequences, rounds of the walk and
@@ -209,19 +220,20 @@ def _getnei_round(index, st, lane, ncand):
     # children: (j major, c minor -- packing keeps ascending c), key =
     # (cat, c, off), unique among valid children
     cmask = process[:, :, None] & cval & (BSZ0[:, :, 1:] > 0)
-    ckey = (cat[:, :, None] << 13) | (cc << 10) | off[:, :, None]
+    ckey = ((cat.to(torch.int64)[:, :, None] << (OFF_BITS + 3))
+            | (cc.to(torch.int64) << OFF_BITS) | off[:, :, None])
     W = jmax * ncand
-    ckey = torch.where(cmask, ckey, _I32MAX).reshape(B, W)
+    ckey = torch.where(cmask, ckey, _KEYMAX).reshape(B, W)
     skey, sidx = torch.sort(ckey, dim=1)
     skey, sidx = skey[:, :jmax], sidx[:, :jmax]
-    nvalid = skey != _I32MAX
+    nvalid = skey != _KEYMAX
     st["redo"] = redo | (cmask.reshape(B, W).sum(1) > jmax)
     st["kb"] = cKB.reshape(B, W).gather(1, sidx)
     st["kf"] = cKF.reshape(B, W).gather(1, sidx)
     st["sz"] = cSZ.reshape(B, W).gather(1, sidx)
-    st["off"] = skey & 0x3ff
-    # category renumber: group = runs of equal (cat, c) = key >> 10
-    khi = skey >> 10
+    st["off"] = (skey & ((1 << OFF_BITS) - 1)).to(torch.int32)
+    # category renumber: group = runs of equal (cat, c) = key >> OFF_BITS
+    khi = skey >> OFF_BITS
     nb = torch.cat([first, khi[:, 1:] != khi[:, :-1]], 1)
     ncat = torch.cummax(torch.where(nb, lane, 0), 1).values
     st["cat"] = torch.where(nvalid, ncat, 0)
@@ -380,9 +392,11 @@ def compute_links_device(index, seqs, min_match, batch=1 << 16,
     Cascade: dedup identical sequences -> length-sorted batches of `batch`
     rows: walk phase -> primary get_nei (tight budgets: jmax_primary lanes,
     ncand_primary candidate slots, maxr_primary rounds) -> ladder rerun of
-    the overflowed rows, `ladder_batch` at a time, with full budgets (128
-    lanes, 4 candidates, the longest read + 2 rounds).  The records do not
-    depend on `batch` or `ladder_batch`."""
+    the overflowed rows, `ladder_batch` at a time (times the longest read's
+    kbp past 1 kbp), with full budgets (128 lanes, 4 candidates, the
+    longest read + 2 rounds).  A walk batch holds at most WALK_CELLS
+    overlap cells.  The records do not depend on `batch` or
+    `ladder_batch`."""
     dev = resolve_device(device)
     if index.device.type != dev.type:
         raise ValueError(f"compute_links_device: the index is on "
@@ -403,8 +417,6 @@ def compute_links_device(index, seqs, min_match, batch=1 << 16,
     lens_r = np.array([len(seqs[i]) for i in reps], np.int32)
     order = reps[np.argsort(lens_r, kind="stable")]
     lmax_g = int(lens_r.max())
-    if lmax_g > MAX_READ_LEN:
-        raise ValueError("unitig link kernel requires read length < 1024")
     STATS["unique"] = len(reps)
 
     def sync():
@@ -412,9 +424,17 @@ def compute_links_device(index, seqs, min_match, batch=1 << 16,
             torch.cuda.synchronize(dev)
 
     ladder = []   # (idxs, ov rows, ovn, lens) of rows flagged redo
-    for b0 in range(0, len(order), batch):
-        idxs = order[b0:b0 + batch]
-        lens = np.array([len(seqs[i]) for i in idxs], np.int32)
+    lens_o = np.sort(lens_r)
+    b0 = n_batches = 0
+    while b0 < len(order):
+        # `batch` rows, fewer where their longest read would take the
+        # walk's buffers past WALK_CELLS (lengths ascend along `order`)
+        m = min(batch, len(order) - b0)
+        while m > 1 and m * (int(lens_o[b0 + m - 1]) + 1) > WALK_CELLS:
+            m = max(1, min(m - 1, WALK_CELLS // (int(lens_o[b0 + m - 1]) + 1)))
+        idxs = order[b0:b0 + m]
+        b0 += m
+        lens = lens_o[b0 - m: b0]
         t0 = time.perf_counter()
         R = torch.from_numpy(_pack_rows(seqs, idxs, lens)).to(dev)
         ld = torch.from_numpy(lens).to(dev)
@@ -434,10 +454,11 @@ def compute_links_device(index, seqs, min_match, batch=1 << 16,
                            ovn[w], ld[w]))
         STATS["walk_s"] += t1 - t0
         STATS["getnei_s"] += time.perf_counter() - t1
-        if verbose and (b0 // batch) % 32 == 0:
-            sys.stderr.write(f"[unitig_links] {b0 + len(idxs)}/{len(order)} "
+        if verbose and n_batches % 32 == 0:
+            sys.stderr.write(f"[unitig_links] {b0}/{len(order)} "
                              f"uniq (+ladder "
                              f"{sum(len(t[0]) for t in ladder)})\n")
+        n_batches += 1
 
     # ladder: rerun overflowed rows with full budgets
     t0 = time.perf_counter()
@@ -449,11 +470,14 @@ def compute_links_device(index, seqs, min_match, batch=1 << 16,
                           for t in ladder]) for d in range(4)]
         ovn_l = torch.cat([t[2] for t in ladder])
         lens_l = torch.cat([t[3] for t in ladder])
-        STATS["ladder_rows"] = len(l_idx)
+        # a ladder batch runs up to the longest read's rounds: past 1 kbp
+        # it takes proportionally more rows, so there are fewer batches
+        lb = ladder_batch * max(1, lmax_g >> 10)
+        STATS.update(ladder_rows=len(l_idx), ladder_batch=lb)
         if verbose:
             sys.stderr.write(f"[unitig_links] ladder: {len(l_idx)} rows\n")
-        for b0 in range(0, len(l_idx), ladder_batch):
-            sl = slice(b0, b0 + ladder_batch)
+        for b0 in range(0, len(l_idx), lb):
+            sl = slice(b0, b0 + lb)
             *outs, rounds = _getnei_phase(
                 index, *(a[sl] for a in ovs), ovn_l[sl], lens_l[sl],
                 128, lmax_g + 2, 4)

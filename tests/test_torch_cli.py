@@ -57,6 +57,23 @@ def test_unpack_output(fixture_files):
     assert len(full.splitlines()) == 2 * 122
 
 
+def test_unpack_reads_past_2_16(tmp_path):
+    """`unpack` walks every read to its sentinel: a read of 70,000 bp comes
+    back whole (fermi_tpu's `unpack` stops its walks at 2^16 symbols), as
+    `unpack -M` gives it."""
+    rng = np.random.default_rng(25)
+    reads = ["".join("ACGT"[c] for c in rng.integers(0, 4, n))
+             for n in (70000, 90, 1500)]
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    write_fasta(fa, reads)
+    _run(tmain, ["build", "--device", "cpu", "-fo", fmd, fa])
+    got = _run(tmain, ["unpack", "--device", "cpu", fmd])
+    assert got == _run(tmain, ["unpack", "-M", fmd])
+    seqs = sorted(ln.split("\t")[0] for ln in got.splitlines())
+    comp = str.maketrans("ACGT", "TGCA")
+    assert seqs == sorted(reads + [r.translate(comp)[::-1] for r in reads])
+
+
 @pytest.mark.parametrize("self_match", [False, True])
 def test_exact_output(fixture_files, self_match):
     _, qfa, jfmd, tfmd = fixture_files

@@ -328,7 +328,7 @@ def test_unitig_card_vs_cpu(card, tmp_path):
     for dev in ("cuda", "cpu"):
         idx = FMDIndex.restore(fmd, dev)
         seqs, ks = extend.retrieve_strings(idx, np.arange(idx.n_seqs),
-                                           max_len=1024)
+                                           bound=1024)
         before = rank_cuda.LAUNCHES["rank6_fused"]
         stores.append(ul.compute_links_device(idx, seqs, 30, batch=700,
                                               ladder_batch=50,
@@ -715,3 +715,103 @@ def test_wide_chain_card_vs_cpu(card, tmp_path, monkeypatch):
     assert outs["cuda"] == outs["cpu"]
     assert outs["cpu"][0].count("SQ\t") == 30
     assert len(outs["cpu"][1].splitlines()) == 240
+
+
+def _long_reads(seed, glen, n, lo, hi):
+    """n reads of lo-hi bp from a random genome of glen bp, 0.2%
+    substitutions, half reverse-complemented."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, glen)
+    reads = []
+    for _ in range(n):
+        m = int(rng.integers(lo, hi + 1))
+        p = int(rng.integers(0, glen - m))
+        r = genome[p:p + m].copy()
+        e = rng.random(m) < 0.002
+        r[e] = (r[e] + 1) % 4
+        if rng.random() < 0.5:
+            r = 3 - r[::-1]
+        reads.append("".join("ACGT"[c] for c in r))
+    return reads
+
+
+def test_seqsort_long_reads_card(card, tmp_path):
+    """seqsort of reads past 4,096 bp (one of 5,000 bp among them) on the
+    card: every walk runs to its sentinel, the host engine's array."""
+    from fermi_tpu_torch.algos.seqsort import seqsort, seqsort_native
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    reads = _long_reads(31, 12000, 30, 300, 4500) + \
+        [_long_reads(32, 6000, 1, 5000, 5000)[0]]
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    write_fasta(fa, reads)
+    assert main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+    idx = FMDIndex.restore(fmd, card)
+    before = rank_cuda.LAUNCHES["rank6_fused"]
+    got = seqsort(idx, batch=16, verbose=False)
+    assert rank_cuda.LAUNCHES["rank6_fused"] > before
+    assert np.array_equal(got, seqsort_native(idx, verbose=False))
+
+
+def test_unitig_long_reads_card(card, tmp_path):
+    """`unitig -l 100` of 1,500 bp reads on the card, with and without a
+    .rank array: the native host walk's bytes (`unitig -t 1`)."""
+    from fermi_tpu_torch.algos.seqsort import seqsort_native
+    from fermi_tpu_torch.algos.unitig import fm6_unitig_native
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import unitig_links as ul
+
+    reads = _long_reads(33, 15000, 150, 1500, 1500)
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    rank = str(tmp_path / "i.rank")
+    write_fasta(fa, reads)
+    assert main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+    host = FMDIndex.restore(fmd, "cpu")
+    srt = seqsort_native(host, verbose=False)
+    srt.tofile(rank)
+    for r, arr in (([], None), (["-r", rank], srt)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["unitig", "--device", "cuda", "-l", "100", *r,
+                         fmd]) == 0
+        assert ul.STATS["k1_launches"] > 0
+        want = fm6_unitig_native(host, 100, arr, 1)
+        assert buf.getvalue() == want and want.count("\n+\n") >= 1
+
+
+def test_retrieve_mates_long_card(card, tmp_path):
+    """Mate walks past their first bound of 1,024 on the card (the bound
+    doubles): the CPU's reads."""
+    from fermi_tpu_torch.algos.scaf import retrieve_mates
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index.fmd import FMDIndex
+
+    reads = _long_reads(34, 10000, 40, 1025, 2000)
+    fa, fmd = str(tmp_path / "r.fa"), str(tmp_path / "i.fmd")
+    write_fasta(fa, reads)
+    assert main(["build", "--device", "cuda", "-fo", fmd, fa]) == 0
+    ids = list(range(1, 80, 3))
+    got = retrieve_mates(FMDIndex.restore(fmd, card), ids)
+    want = retrieve_mates(FMDIndex.restore(fmd, "cpu"), ids)
+    assert got == want and min(len(s) for s in got.values()) > 1024
+
+
+def test_unfused_rows_card(pair):
+    """The int64 layout without fused rows on the card (rank6 through K1's
+    `rank_block_counts`): rank6 at every k and the SMEMs of the fused
+    index."""
+    import dataclasses
+
+    reads, gidx, cidx = pair
+    wide = dataclasses.replace(
+        gidx, occ=gidx.occ.long(), cnt=gidx.cnt.long(),
+        mcnt=gidx.mcnt.long(), fused=None)
+    ks = torch.arange(cidx.total + 1)
+    before = rank_cuda.LAUNCHES["rank_block_counts"]
+    assert torch.equal(wide.rank6(ks.to(gidx.device)).cpu(),
+                       cidx.rank6(ks).long())
+    qry = [dna.encode(s) for s in reads[::5]]
+    assert smem.smem_all(wide, qry) == smem.smem_all(cidx, qry)
+    assert rank_cuda.LAUNCHES["rank_block_counts"] > before + 1

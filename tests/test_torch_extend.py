@@ -67,7 +67,7 @@ def test_retrieve_walks(pair):
         jex.retrieve(jidx, jnp.asarray(ids), 128))
     _eq(tex.retrieve2(tidx, torch.from_numpy(ids), 128),
         jex.retrieve2(jidx, jnp.asarray(ids), 128))
-    tseqs, tk = tex.retrieve_strings(tidx, ids[::3], max_len=256)
+    tseqs, tk = tex.retrieve_strings(tidx, ids[::3], bound=256)
     jseqs, jk = jex.retrieve_strings(jidx, ids[::3], max_len=256)
     assert [s.tolist() for s in tseqs] == [s.tolist() for s in jseqs]
     np.testing.assert_array_equal(tk, jk)

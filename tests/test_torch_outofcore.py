@@ -384,12 +384,13 @@ def cli_fmd(tmp_path_factory):
 @pytest.mark.parametrize("same_length", [True, False])
 @pytest.mark.parametrize("flags", [[], ["-r"], ["-p"], ["-r", "-p"]])
 def test_cli_chkbwt_dash_M_corrupted(cli_fmd, tmp_path, flags, same_length):
-    """chkbwt -M on tests/test_torch_cli.py's corrupted copies: fermi_tpu's
-    exit code, stdout and messages.  The copy whose BWT keeps its length
-    fails the rank check (an occ row of the record cache disagrees).  The
-    copy whose runs hold one symbol more than the header passes it, in
-    fermi_tpu and in the port alike (fault F4, ROADMAP §3), where
-    `chkbwt -r` without -M fails."""
+    """chkbwt -M on tests/test_torch_cli.py's corrupted copies.  The copy
+    whose BWT keeps its length fails the rank check (an occ row of the
+    record cache disagrees), with fermi_tpu's exit code, stdout and
+    messages.  The copy whose runs hold one symbol more than the header
+    gets no record cache in the port, which exits 1 with every flag, as
+    `chkbwt -r` without -M does; fermi_tpu caches the header's first n
+    symbols and passes (fault F4, repaired in the port only)."""
     paths = []
     for who in ("j", "t"):
         os.makedirs(tmp_path / who)
@@ -397,8 +398,13 @@ def test_cli_chkbwt_dash_M_corrupted(cli_fmd, tmp_path, flags, same_length):
                               same_length))
     want = _cli(jmain, ["chkbwt", "-M", *flags, paths[0]])
     got = _cli(tmain, ["chkbwt", "-M", *flags, paths[1]])
-    assert got == want
-    assert got[0] == (1 if "-r" in flags and same_length else 0)
+    if same_length:
+        assert got == want
+        assert got[0] == (1 if "-r" in flags else 0)
+    else:
+        assert want[0] == 0 and got[0] == 1
+        assert got[2][0] == want[2][0] and "[E::chkbwt]" in got[2][-1]
+        assert not os.path.exists(paths[1] + ".blk")
     assert ("-p" in flags and got[0] == 0) == bool(got[1])
     if "-r" in flags:
         assert _cli(tmain, ["chkbwt", "--device", "cpu", "-r",

@@ -23,6 +23,7 @@ from fermi_tpu_torch.pipeline.driver import Pipeline as TPipeline
 
 from test_pipeline import make_pe_fastq
 from test_torch_scaf import linked_pair_reads
+from test_torch_unitig import long_reads
 from util import write_fasta
 
 torch.set_num_threads(1)
@@ -231,3 +232,29 @@ def test_cli_fltuniq(ec_fq):
             want = _out(jmain, ["fltuniq", *k, path])
             assert got[0] == want[0] == 0 and got[1] == want[1]
             assert ("set the k-mer size" in got[2]) == (not k)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_stage_unitig_long_reads(tmp_path, paired):
+    """The driver's unitig stage on 1,024-3,000 bp reads (`run -C` up to
+    p0.mag.gz; with pairs through ec.rank): fermi_tpu's Pipeline, whose
+    stage takes its host walk, byte for byte."""
+    fq = str(tmp_path / "long.fq")
+    with open(fq, "w") as f:
+        for i, s in enumerate(long_reads(glen=9000, cov=10)):
+            f.write(f"@p{i // 2}\n{s}\n+\n{'I' * len(s)}\n")
+    for name, pl in (("j", JPipeline(str(tmp_path / "j"), n_threads=2,
+                                     unitig_k=100, skip_ec=True,
+                                     paired=paired, unitig_threads=1)),
+                     ("t", TPipeline(str(tmp_path / "t"), n_threads=2,
+                                     unitig_k=100, skip_ec=True,
+                                     paired=paired, device="cpu"))):
+        pl.stage_raw_fmd([fq])
+        pl.stage_rank()
+        pl.stage_unitig()
+    for sfx in ("ec.fmd", "ec.rank", "p0.mag.gz"):
+        jf, tf = tmp_path / f"j.{sfx}", tmp_path / f"t.{sfx}"
+        assert jf.exists() == tf.exists() == (paired or sfx != "ec.rank")
+        if jf.exists():
+            assert _read(tf) == _read(jf), sfx
+    assert _read(tmp_path / "t.p0.mag.gz").count(b"\n+\n") > 1

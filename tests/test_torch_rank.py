@@ -179,6 +179,43 @@ def test_forced_int64_domain(monkeypatch, pair):
             _eq(a.numpy(), b)
 
 
+def test_unfused_rows_int64(monkeypatch, tmp_path):
+    """The layout of an index past 2^32 - 128 symbols, and fermi_tpu's for
+    every index past 2^31: the int64 domain without fused rows, rank6 by
+    a row gather, K1's `rank_block_counts` and the occ row.  rank6 at every
+    k and `smem_all` of mutated reads equal the fused index's and
+    fermi_tpu's."""
+    import dataclasses
+
+    from fermi_tpu.core import dna
+    from fermi_tpu.search import smem as jsm
+    from fermi_tpu_torch.search import smem as tsm
+    from util import build_my_fmd, random_reads
+
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    reads = random_reads(150, seed=5, with_genome=True, genome_len=4000)
+    fmd = str(tmp_path / "i.fmd")
+    build_my_fmd(reads, fmd)
+    jidx = jfmd.FMDIndex.restore(fmd)
+    fused = tfmd.FMDIndex.restore(fmd, device="cpu")
+    assert fused.idtype == torch.int64 and fused.fused is not None
+    unfused = dataclasses.replace(fused, fused=None)
+    ks = torch.arange(fused.total + 1, dtype=torch.int64)
+    got = unfused.rank6(ks)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, fused.rank6(ks))
+    _eq(got.numpy(), jidx.rank6(jnp.asarray(ks.numpy())))
+    rng = np.random.default_rng(8)
+    seqs = []
+    for s in reads[::3]:
+        b = dna.encode(s)
+        b[rng.integers(0, len(b), 2)] = rng.integers(1, 5, 2)
+        seqs.append(b)
+    want = tsm.smem_all(fused, seqs)
+    assert tsm.smem_all(unfused, seqs) == want == jsm.smem_all(jidx, seqs)
+    assert sum(map(len, want)) > len(seqs)
+
+
 def test_pick_idtype():
     assert tfmd._pick_idtype(1000) == torch.int32
     assert tfmd._pick_idtype(2**31 - tfmd.BLOCK - 1) == torch.int32

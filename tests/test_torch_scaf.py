@@ -150,7 +150,8 @@ def test_scaf_core(linked, monkeypatch, distort, pr_links):
 def test_retrieve_mates(linked, monkeypatch):
     """The batched mate walks give fermi_tpu's one-read retrieves, in any
     chunking and in the int64 index domain; a read longer than the walk's
-    bound raises."""
+    first bound walks on to its sentinel (the bound doubles), as
+    fermi_tpu's `HostIndex.retrieve` does."""
     fmd = linked[0]
     runs = trld.read_fmd(fmd)
     host = JHostIndex(jrld.read_fmd(fmd).expand())
@@ -159,9 +160,9 @@ def test_retrieve_mates(linked, monkeypatch):
     idx = FMDIndex.from_runs(runs, "cpu")
     assert TS.retrieve_mates(idx, ids) == want
     assert TS.retrieve_mates(idx, ids, chunk=7) == want
-    assert TS.retrieve_mates(idx, ids, max_len=70) == want      # 70 bp reads
-    with pytest.raises(ValueError, match="bound of 69"):
-        TS.retrieve_mates(idx, ids, max_len=69)
+    assert TS.retrieve_mates(idx, ids, bound=70) == want        # 70 bp reads
+    assert TS.retrieve_mates(idx, ids, bound=69) == want
+    assert TS.retrieve_mates(idx, ids, bound=5, chunk=3) == want
     monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
     wide = FMDIndex.from_runs(runs, "cpu")
     assert wide.idtype == torch.int64
@@ -183,6 +184,89 @@ def test_cli_scaf(linked):
             jmain(["scaf", *flags, fmd, p3, str(avg), str(std)])
         assert got.getvalue() == want.getvalue() != ""
         assert _no_telemetry(ge) == _no_telemetry(we)
+
+
+LONG_INSERT, LONG_SD = 3000, 150
+
+
+def long_mate_reads(seed=1, n_pairs=300):
+    """Pairs of 1,025-1,400 bp mates (insert 3,000 +- 150, the second
+    reverse-complemented) from a random 18.3 kbp genome with a 1,600 bp
+    repeat at two places and a 300 bp stretch that no read touches, far
+    from both: the gap that scaf links across and walks the mates of."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, 18300)
+    rep = rng.integers(0, 4, 1600)
+    g[1000:2600] = rep
+    g[14300:15900] = rep
+    genome = "".join("ACGT"[c] for c in g)
+    hole = (9000, 9300)
+    reads = []
+    while len(reads) < 2 * n_pairs:
+        a, b = (int(x) for x in rng.integers(1025, 1401, 2))
+        ins = int(rng.normal(LONG_INSERT, LONG_SD))
+        pos = int(rng.integers(0, len(genome) - ins))
+        if (pos < hole[1] and pos + a > hole[0]) or \
+                (pos + ins - b < hole[1] and pos + ins > hole[0]):
+            continue
+        reads.append(genome[pos:pos + a])
+        reads.append(revcomp_str(genome[pos + ins - b:pos + ins]))
+    return reads
+
+
+@pytest.fixture(scope="module")
+def long_mates(tmp_path_factory):
+    """(fmd, p3 path) of the long-mate pairs through fermi_tpu's chain, as
+    `linked`'s (remap's insert estimate stops at 1,000 bp, so scaf gets the
+    drawn insert)."""
+    d = tmp_path_factory.mktemp("scaf_long")
+    fmd = str(d / "lm.fmd")
+    host = JHostIndex.from_runs(build_my_fmd(long_mate_reads(), fmd))
+    arr = seqsort_native(host, n_threads=1, verbose=False)
+    p0 = io.StringIO()
+    j_fm6_unitig(host, 40, p0, arr, n_threads=1)
+    (d / "p0.mag").write_text(p0.getvalue())
+    opt = dict(JM.DEFAULT_OPT)
+    opt.update(flag_clean=True, flag_aggressive=True, flag_read_ori=True,
+               flag_no_amend=True, min_ovlp=48)
+    g = JM.mag_read(str(d / "p0.mag"), opt)
+    JM.g_clean(g, opt)
+    with open(d / "p2.mag", "w") as f:
+        JM.mag_print(g, f)
+    with open(d / "p3.mag", "w") as f, \
+            contextlib.redirect_stderr(io.StringIO()):
+        jremap(host, str(d / "p2.mag"), f, arr)
+    return fmd, str(d / "p3.mag")
+
+
+def test_retrieve_mates_past_1024_bp(long_mates):
+    """Mates of 1,025-1,400 bp walk to their sentinels: fermi_tpu's
+    `HostIndex.retrieve` bytes (the walk's first bound is 1,024)."""
+    fmd = long_mates[0]
+    runs = trld.read_fmd(fmd)
+    host = JHostIndex(jrld.read_fmd(fmd).expand())
+    ids = list(range(1, runs.n_seqs, 31))
+    want = {x: host.retrieve(x)[0].tobytes() for x in ids}
+    assert min(len(s) for s in want.values()) > TS.MATE_BOUND
+    idx = FMDIndex.from_runs(runs, "cpu")
+    assert TS.retrieve_mates(idx, ids) == want
+    assert TS.retrieve_mates(idx, ids, bound=300, chunk=8) == want
+
+
+def test_cli_scaf_long_mates(long_mates):
+    """`scaf -a 10` across the gap of the long-mate genome: fermi_tpu's
+    bytes and messages; the gap is examined and its mates walked."""
+    fmd, p3 = long_mates
+    args = ["-P", "-a", "10", fmd, p3, str(LONG_INSERT), str(LONG_SD)]
+    got, want = io.StringIO(), io.StringIO()
+    ge, we = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(got), contextlib.redirect_stderr(ge):
+        assert tmain(["scaf", "--device", "cpu", *args]) == 0
+    with contextlib.redirect_stdout(want), contextlib.redirect_stderr(we):
+        jmain(["scaf", *args])
+    assert got.getvalue() == want.getvalue() != ""
+    assert _no_telemetry(ge) == _no_telemetry(we)
+    assert TS.STATS["gaps"] >= 1 and TS.STATS["mates"] > 50
 
 
 def _no_telemetry(err):
@@ -306,3 +390,36 @@ def test_unitig_builder_run():
         t_fm6_unitig(THostIndex(bwt), 30, a, sorted_arr)
         j_fm6_unitig(JHostIndex(bwt), 30, b, sorted_arr, use_native=False)
         assert a.getvalue() == b.getvalue() != ""
+
+
+def _tip_graph(M):
+    """Vertex p's right-hand overlaps: 30 bp to a tip q (50 bp, one read,
+    nothing on its right) and 20 bp to a long vertex r.  g_rm_edge with
+    min_len 100 and min_nsr 5 finds q the longest overlap's end and resets
+    the longest overlap to min_ovlp."""
+    g = M.Mag()
+    g.v = [M.MagVertex(len=200, nsr=10, k=[1, 2],
+                       nei=[[], [[3, 30], [5, 20]]]),
+           M.MagVertex(len=50, nsr=1, k=[3, 4], nei=[[[2, 30]], []]),
+           M.MagVertex(len=300, nsr=10, k=[5, 6], nei=[[[2, 20]], []])]
+    g.build_hash()
+    return g
+
+
+@pytest.mark.parametrize("min_ovlp", [0, 1])
+def test_rm_edge_longest_overlap_a_tip(min_ovlp):
+    """scaf's local assembly calls g_rm_edge(0, 0.8, ...): when the longest
+    overlap leads to a tip, its maximum falls to 0, and mag.c's double
+    division gives inf, so no edge goes.  fermi_tpu divides Python ints and
+    raises ZeroDivisionError there (fault F10); at min_ovlp 1 both agree."""
+    tg = _tip_graph(TM)
+    tg.g_rm_edge(min_ovlp, 0.8, 100, 5)
+    assert [p.nei for p in tg.v] == [[[], [[3, 30], [5, 20]]],
+                                     [[[2, 30]], []], [[[2, 20]], []]]
+    jg = _tip_graph(JM)
+    if min_ovlp == 0:
+        with pytest.raises(ZeroDivisionError):
+            jg.g_rm_edge(min_ovlp, 0.8, 100, 5)
+    else:
+        jg.g_rm_edge(min_ovlp, 0.8, 100, 5)
+        assert [p.nei for p in jg.v] == [p.nei for p in tg.v]

@@ -190,13 +190,22 @@ def test_seg_cummin_equals_loop():
 
 @pytest.mark.parametrize("case", ["12x"], indirect=True)
 def test_reads_of_1024_bp_raise(case):
-    seqs = case["seqs"][:3] + [np.ones(1024, np.uint8)]
+    """Sequences of 1,024 bp and more, which fermi_tpu's device records
+    refuse (its 10-bit key), get records in the port, whose key has room
+    for any length; the stored sequences beside them keep fermi_tpu's host
+    records `compute_link_host` (tests/test_torch_unitig.py's long-read
+    cases hold whole MAGs of long reads to fermi_tpu's `unitig`)."""
+    fields = ("ok", "ret", "intv0", "has_ovlp", "nei", "forked", "sbits")
+    seqs = case["seqs"][:3] + [np.ones(1023, np.uint8),
+                               np.ones(1024, np.uint8)]
     with pytest.raises(ValueError, match="1024"):
-        TL.compute_links_device(case["tidx"], seqs, 30, device="cpu")
-    store = TL.compute_links_device(case["tidx"], case["seqs"][:3]
-                                    + [np.ones(1023, np.uint8)], 30,
-                                    device="cpu")
-    assert store.valid[-1]
+        JL.compute_links_device(JIndex.restore(case["fmd"]), seqs, 30)
+    store = TL.compute_links_device(case["tidx"], seqs, 30, device="cpu")
+    for x in range(3):
+        lh, ld = JB.compute_link_host(case["e"], seqs[x], 30), store[x]
+        assert [getattr(lh, f) for f in fields] == \
+            [getattr(ld, f) for f in fields], x
+    assert store.valid[-2:].all()
 
 
 def _run(main, argv):
@@ -245,6 +254,56 @@ def test_cli_unitig_threads_take_the_card_path(rank_file):
         rc, got, _ = _run(tcli.main, ["unitig", "--device", "cpu", "-t", t,
                                       *args])
         assert rc == 0 and got == want
+
+
+def long_reads(seed=17, glen=12000, cov=15, lo=1024, hi=3000):
+    """Reads of lo-hi bp (1,024 is the first length fermi_tpu's device
+    records refuse), cov-x of a random genome with a 1,500 bp repeat at two
+    places and 0.2% substitutions, half reverse-complemented: unitigs that
+    branch at the repeat."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, glen)
+    genome[7000:8500] = genome[1500:3000]
+    reads = []
+    for _ in range(glen * cov // ((lo + hi) // 2)):
+        n = int(rng.integers(lo, hi + 1))
+        p = int(rng.integers(0, glen - n))
+        r = genome[p:p + n].copy()
+        err = rng.random(n) < 0.002
+        r[err] = (r[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        if rng.random() < 0.5:
+            r = 3 - r[::-1]
+        reads.append("".join("ACGT"[c] for c in r))
+    return reads
+
+
+@pytest.fixture(scope="module")
+def long_rank_file(tmp_path_factory):
+    """The long reads' index and its .rank array, from fermi_tpu."""
+    from fermi_tpu.algos.seqsort import seqsort_native
+
+    d = tmp_path_factory.mktemp("long")
+    fmd = str(d / "i.fmd")
+    build_my_fmd(long_reads(), fmd)
+    rank = str(d / "i.rank")
+    seqsort_native(HostIndex.from_runs(jrld.read_fmd(fmd)),
+                   verbose=False).tofile(rank)
+    return fmd, rank
+
+
+@pytest.mark.parametrize("with_rank", [False, True])
+def test_cli_unitig_long_reads(long_rank_file, with_rank):
+    """`unitig --device cpu -l 100` of 1,024-3,000 bp reads: fermi_tpu's CLI
+    `unitig` (its host walk) byte for byte; the card path takes them (its
+    records cover every length)."""
+    fmd, rank = long_rank_file
+    args = ["-l", "100", *(["-r", rank] if with_rank else []), fmd]
+    rc, want, _ = _run(jcli.main, ["unitig", *args])
+    assert rc == 0 and want.count("\n+\n") > 1
+    rc, got, _ = _run(tcli.main, ["unitig", "--device", "cpu", *args])
+    assert rc == 0
+    assert got == want
+    assert TL.STATS["unique"] > 0 and TL.STATS["walk_rounds"] >= 1024
 
 
 def _repeat_reads():
