@@ -121,10 +121,16 @@ D/UW-3/CX), 30x of 100 bp reads:
   to `exact -M`, `unpack` of 1,000 ids against the reads; seconds by part,
   device and host peaks; K1 at the main path's shape on the wide rows, and
   one 4,096-read batch's K1 time against its wall time and idle share;
-  then the same resident arrays without fused rows (the layout past 2^32
-  - 128 symbols, K1's `rank_block_counts` on gathered rows): rank6 at the
-  64 positions against the host scan and `exact` of the first 4,096 reads
-  byte-equal to the fused index's.
+- an index past 2^32 symbols, inside the wide tier: `merge` of the 2.26
+  Gsym index with itself on the card (4,524,800,000 symbols: past 2^32 -
+  128 every index is int64 without fused rows, rank6 a row gather and K1's
+  `rank_block_counts`), restored once, then `chkbwt -r`, rank6 at 64
+  positions (half past 2^32) against a host scan, `exact` of the first
+  4,096 wide queries byte-equal to the native engine, to `exact -M` over
+  the 256 B-record .fmd.blk and to the wide index's records with every
+  size doubled, `unpack` of ids x and x + n_seqs against the reads;
+  seconds and device peaks by part, host peak, file sizes, K1's launches
+  of each entry.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -146,7 +152,6 @@ non-zero; so does a machine without CUDA.
 import argparse
 import contextlib
 import ctypes
-import dataclasses
 import io
 import json
 import os
@@ -2848,6 +2853,8 @@ WIDE_QUERIES = 20_000           # matched `exact` reads, 1% fresh substitutions
 WIDE_PROFILED = 4096            # of them, the batch of k1_stream and profile
 WIDE_SPOTS = 64                 # rank6 positions checked by a host scan
 WIDE_MIN_SYMBOLS = 2**31        # the index must reach the int64 domain
+HUGE_MIN_SYMBOLS = 2**32        # the merged index must pass 2^32
+HUGE_QUERIES = 4096             # of the wide queries, searched in [huge]
 
 
 def wide_reads(rng, path, n_pairs):
@@ -2899,6 +2906,22 @@ def host_peak_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
+def host_rank_scan(flat, ks):
+    """rank6 of the BWT `flat` at each of the sorted positions ks, by a
+    running bincount on the host (no K1)."""
+    scan = np.zeros((len(ks), 6), np.int64)
+    acc = np.zeros(6, np.int64)
+    prev = 0
+    for t, k in enumerate(ks):
+        # 1 Mi-symbol slices: bincount's int64 copy of each stays in cache
+        for a in range(prev, k, 1 << 20):
+            acc += np.bincount(flat[a: min(k, a + (1 << 20))],
+                               minlength=6)[:6]
+        scan[t] = acc
+        prev = k
+    return scan
+
+
 def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     """The wide index tier end to end: 2 x n_pairs reads written as FASTQ,
     the driver's raw_fmd stage on `dev` (native encoders, the text, the
@@ -2911,7 +2934,9 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     N_UNPACK ids against the reads.  Every step is a gate.  Then K1 timed
     at the main path's shape on the wide rows, and one WIDE_PROFILED batch
     through k1_stream and profile_exact for ROADMAP item 3a's rule.
-    Returns K1's launches on the path."""
+    Last, before the files go, huge_phase over raw.fmd.  Returns K1's
+    launches on the paths: rank6_fused's (the wide index's queries and the
+    merge's gap walk), rank_block_counts' (the merged index's queries)."""
     from fermi_tpu_torch import rld
     from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
                                           write_exact)
@@ -3001,16 +3026,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
         rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
     got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
-    scan = np.zeros((len(ks), 6), np.int64)
-    acc = np.zeros(6, np.int64)
-    prev = 0
-    for t, k in enumerate(ks):
-        # 1 Mi-symbol slices: bincount's int64 copy of each stays in cache
-        for a in range(prev, k, 1 << 20):
-            acc += np.bincount(flat[a: min(k, a + (1 << 20))],
-                               minlength=6)[:6]
-        scan[t] = acc
-        prev = k
+    scan = host_rank_scan(flat, ks)
     spots_ok = int((got == scan).all(1).sum())
     secs["rank_spots"] = time.perf_counter() - t0
     out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
@@ -3065,7 +3081,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         raise AssertionError("wide exact: card != exact -M")
     out.update(exact_reads_per_s_M=WIDE_QUERIES / secs["exact_M"],
                host_peak_gib=host_peak_gib())
-    del blocks_h, flat, reads
+    del blocks_h, flat
 
     # K1 on the wide rows: the main path's shape, then one batch's steps,
     # and the batch profiled (ROADMAP item 3a's rule)
@@ -3085,42 +3101,189 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         k1_share_of_wall=share, idle_share=idle,
         decision="close" if close else "keep")
 
-    # the same resident arrays without fused rows: the layout past 2^32 -
-    # 128 symbols (and fermi_tpu's past 2^31), rank6 by a row gather, K1's
-    # rank_block_counts and the occ row
-    unfused = dataclasses.replace(idx, fused=None)
-    n_uf = min(WIDE_PROFILED, len(seqs))
-    reset_launches()
-    t0 = time.perf_counter()
-    uf_ranks = unfused.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
-    uf_mems = sm.smem_all(unfused, seqs[:n_uf])
-    secs["unfused_exact"] = time.perf_counter() - t0
-    uf_k1 = launches()
-    fused_text, uf_text = io.StringIO(), io.StringIO()
-    write_exact(idx, names[:n_uf], seqs[:n_uf], mems[:n_uf], fused_text)
-    write_exact(unfused, names[:n_uf], seqs[:n_uf], uf_mems, uf_text)
-    uf_spots = int((uf_ranks == scan).all(1).sum())
-    out.update(unfused_queries=n_uf, unfused_rank_spots_exact=uf_spots,
-               unfused_k1_block_counts=uf_k1["rank_block_counts"],
-               unfused_k1_fused=uf_k1["rank6_fused"])
-    log("wide_unfused", queries=n_uf, seconds=secs["unfused_exact"],
-        rank_spots=len(ks), rank_spots_exact=uf_spots,
-        exact_bytes_equal=uf_text.getvalue() == fused_text.getvalue(),
-        k1_rank_block_counts=uf_k1["rank_block_counts"],
-        k1_rank6_fused=uf_k1["rank6_fused"])
-    if uf_spots != len(ks) or uf_text.getvalue() != fused_text.getvalue():
-        raise AssertionError("wide: the unfused rows disagree with the "
-                             "fused rows or the host scan")
-    if on_card and (uf_k1["rank_block_counts"] < 1
-                    or uf_k1["rank6_fused"] != 0):
-        raise AssertionError(f"wide: the unfused query's launches: {uf_k1}")
-    del idx, unfused, mems, uf_mems
+    # [wide]'s records of the queries [huge] searches again
+    wide_text = io.StringIO()
+    write_exact(idx, names[:HUGE_QUERIES], seqs[:HUGE_QUERIES],
+                mems[:HUGE_QUERIES], wide_text)
+    n_seqs, total = idx.n_seqs, idx.total
+    del idx, mems
     torch.cuda.empty_cache()
-    shutil.rmtree(wd)
     log("wide", pairs=n_pairs, seconds=secs, k1_launches=k1,
         k1_main_shape_ms=k1_main["ms"], k1_main_shape_bound_ms=k1_main[
             "bound_ms"], **out, phase_seconds=time.perf_counter() - t_phase)
-    return k1, uf_k1["rank_block_counts"]
+    # the wide cache goes first: [huge] writes one of 2.6 times its size
+    os.remove(blk.path)
+    k1_merge, k1_huge = huge_phase(rng, wd, dev, fmd, reads, q_fa,
+                                   wide_text.getvalue(), (total, n_seqs))
+    shutil.rmtree(wd)
+    return k1 + k1_merge, k1_huge
+
+
+def doubled_sizes(exact_text):
+    """`exact`'s records with every SMEM's size (the EM line's fourth
+    field) doubled."""
+    out = []
+    for ln in exact_text.splitlines(True):
+        if ln.startswith("EM\t"):
+            f = ln.split("\t")
+            f[3] = str(2 * int(f[3]))
+            ln = "\t".join(f)
+        out.append(ln)
+    return "".join(out)
+
+
+def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
+    """An index past 2^32 symbols: `merge` of the wide index `fmd` with
+    itself through the CLI on `dev` (the gap walk over two resident 2.26
+    Gsym indexes with fused rows), twice the symbols and sequences
+    (`wide_shape` is the wide index's (total, n_seqs)).  Past 2^32 - 128
+    symbols the restored index is int64 without fused rows, so every rank
+    below is a row gather and K1's `rank_block_counts`.  Over it, each a
+    gate: `chkbwt -r`; rank6 at WIDE_SPOTS positions, half past 2^32,
+    against a host scan; `exact` of the first HUGE_QUERIES queries of q_fa
+    on the card, byte-equal to the native engine over the same index's
+    host arrays, to `exact -M` over the new .fmd.blk (256 B records) and
+    to `wide_text` (the wide index's records of them) with every size
+    doubled: each SA interval doubles, kf with n_seqs, so the flags stay;
+    `unpack` of N_UNPACK ids x and x + n_seqs, both the read behind x.
+    Returns K1's launches: rank6_fused's in the merge, rank_block_counts'
+    on the merged index."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
+                                          write_exact)
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.index import fmd as fmd_mod
+    from fermi_tpu_torch.index.blkidx import ensure_blk
+    from fermi_tpu_torch.search import extend as se
+    from fermi_tpu_torch.search import smem as sm
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    with open("/proc/meminfo") as f:
+        ram = int(re.search(r"MemTotal:\s+(\d+)", f.read()).group(1))
+    secs, peak = {}, {}
+    out = {"host_ram_gib": ram / 2**20,
+           "disk_free_gb": shutil.disk_usage(wd).free / 1e9,
+           "host_peak_gib_before": host_peak_gib()}
+    big = os.path.join(wd, "huge.fmd")
+
+    # merge on the card, its parts timed by merge_files
+    reset_launches()
+    torch.cuda.empty_cache()
+    secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo", big, fmd,
+                             fmd])[0]
+    for k, v in mg.FILE_STATS["seconds"].items():
+        secs[f"merge_{k}"] = v
+    for k, v in mg.FILE_STATS["device_peak"].items():
+        peak[f"merge_{k}"] = v
+    k1_merge = launches()
+    out.update(merge_steps=mg.STATS["steps"], merge_lanes=mg.STATS["lanes"],
+               fmd_gb=os.path.getsize(big) / 1e9,
+               host_peak_gib_merge=host_peak_gib())
+    if on_card and (k1_merge["rank6_fused"] < 1
+                    or k1_merge["rank_block_counts"]):
+        raise AssertionError(f"huge: the merge's launches: {k1_merge}")
+
+    def restore():
+        runs = rld.read_fmd(big)
+        return runs.mcnt.copy(), len(runs.lengths), \
+            fmd_mod.FMDIndex.from_runs(runs, dev)
+    reset_launches()
+    (mcnt, out["runs"], idx), secs["restore"], peak["restore"] = timed(
+        dev, restore)
+    out.update(symbols=idx.total, idtype=str(idx.idtype),
+               fused=idx.fused is not None,
+               host_peak_gib_restore=host_peak_gib())
+    if (idx.total != 2 * wide_shape[0] or idx.n_seqs != 2 * wide_shape[1]
+            or idx.total < HUGE_MIN_SYMBOLS or idx.idtype != torch.int64
+            or idx.fused is not None or idx.total < fmd_mod.FUSED_MAX):
+        raise AssertionError(f"huge index: {idx.total} symbols, "
+                             f"{idx.n_seqs} sequences, {idx.idtype}, "
+                             f"fused {idx.fused is not None}")
+
+    e = io.StringIO()
+    with contextlib.redirect_stderr(e):
+        rc, secs["chkbwt"], peak["chkbwt"] = timed(
+            dev, lambda: check_ranks(idx, mcnt))
+    if rc or "rank check passed" not in e.getvalue():
+        raise AssertionError(f"chkbwt -r of the huge index: {e.getvalue()}")
+    out["chkbwt_chunks"] = -(-idx.total // CHKBWT_CHUNK)
+
+    t0 = time.perf_counter()
+    blocks_h = sm._native_index_arrays(idx)[0]
+    flat = blocks_h.reshape(-1)[: idx.total]
+    lo_k = min(HUGE_MIN_SYMBOLS, idx.total)
+    ks = np.sort(np.concatenate([
+        rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
+        rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
+    got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
+    spots_ok = int((got == host_rank_scan(flat, ks)).all(1).sum())
+    secs["rank_spots"] = time.perf_counter() - t0
+    out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
+               rank_spots_past_2_32=int((ks >= 2**32).sum()))
+    if spots_ok != len(ks):
+        raise AssertionError(f"huge rank6 spot check: {spots_ok}/{len(ks)}")
+    del blocks_h, flat
+
+    # exact on the card, the native engine, [wide]'s records doubled
+    with open(q_fa) as f:
+        head = [next(f) for _ in range(2 * HUGE_QUERIES)]
+    names = [ln[1:].strip() for ln in head[0::2]]
+    seqs = [dna.encode(ln.strip()) for ln in head[1::2]]
+    mems, secs["exact_card"], peak["exact"] = timed(
+        dev, lambda: sm.smem_all(idx, seqs))
+    card = io.StringIO()
+    write_exact(idx, names, seqs, mems, card)
+    out.update(exact_reads_per_s=len(seqs) / secs["exact_card"],
+               smems=sum(len(m) for m in mems))
+    if card.getvalue() != doubled_sizes(wide_text):
+        raise AssertionError("huge exact: the card's records != the wide "
+                             "index's with every size doubled")
+    t0 = time.perf_counter()
+    if sm.smem_all_native(idx, seqs) != mems:
+        raise AssertionError("huge exact: card != native engine")
+    secs["exact_native"] = time.perf_counter() - t0
+
+    # unpack: ids x and x + n_seqs are both the read behind x
+    ids = np.sort(rng.choice(wide_shape[1], N_UNPACK, replace=False))
+    both = np.concatenate([ids, ids + wide_shape[1]])
+    (got, _), secs["unpack"], peak["unpack"] = timed(
+        dev, lambda: se.retrieve_strings(idx, both))
+    for x, s in zip(both, got):
+        y = x % wide_shape[1]
+        r = reads[y // 2] + 1
+        want = r if y % 2 == 0 else (5 - r)[::-1]
+        if not np.array_equal(s, want):
+            raise AssertionError(f"huge unpack of id {x}")
+    k1 = launches()
+    if on_card and (k1["rank_block_counts"] < 1 or k1["rank6_fused"]):
+        raise AssertionError(f"huge: the merged index's launches: {k1}")
+    del idx
+    torch.cuda.empty_cache()
+
+    # exact -M over the 256 B-record cache, on the host
+    blk, secs["ensure_blk"] = host_only(
+        "ensure_blk", lambda: ensure_blk(big, n_threads=OOC_THREADS))
+    out.update(blk_rows=blk.n_rows, blk_gb=os.path.getsize(blk.path) / 1e9,
+               blk_wide=blk.wide)
+    # 256 B records past 2^32 - 1 symbols (fmblk_build's switch)
+    if blk.total != 2 * wide_shape[0] or blk.wide != (blk.total >= 2**32):
+        raise AssertionError(f"huge .fmd.blk: wide {blk.wide}, {blk.total}")
+    hq_fa = os.path.join(wd, "hq.fa")
+    with open(hq_fa, "w") as f:
+        f.writelines(head)
+    (secs["exact_M"], text, _), _ = host_only(
+        "exact -M", lambda: run_cli(["exact", "-M", big, hq_fa]))
+    if text != card.getvalue():
+        raise AssertionError("huge exact: card != exact -M")
+    out.update(exact_reads_per_s_M=len(seqs) / secs["exact_M"],
+               host_peak_gib=host_peak_gib())
+    log("huge", seconds=secs,
+        device_peak_gb={k: v / 1e9 for k, v in peak.items()},
+        k1_merge=k1_merge, k1_merged_index=k1, **out,
+        phase_seconds=time.perf_counter() - t_phase)
+    return k1_merge["rank6_fused"], k1["rank_block_counts"]
 
 
 def ptxas_report(jobs):
@@ -3242,6 +3405,7 @@ def main():
         k1_long = long_reads_phase(np.random.default_rng(args.seed + 6),
                                    workdir, gp, dev)
         # slice 10: the wide index tier, from a stream of its own
+        # and past 2^32 symbols (the wide index merged with itself)
         k1_wide, k1_unfused = wide_phase(np.random.default_rng(args.seed + 5),
                                          workdir, dev, res["maxi"], clock_hz)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]

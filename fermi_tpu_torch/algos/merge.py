@@ -19,6 +19,8 @@ record cache, native/rld_codec.cpp fappend_*); the CLI's `build -i` gets
 the same bytes from `compute_gap_bits` on the device.
 """
 
+import contextlib
+import sys
 import time
 
 import numpy as np
@@ -86,14 +88,80 @@ def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = 1 << 20,
     return bits[: n0 + n1]
 
 
-def merge_bwts(bwt0: torch.Tensor, bwt1: torch.Tensor,
-               bits: torch.Tensor) -> torch.Tensor:
+MERGE_CHUNK = 1 << 28       # merged symbols interleaved at a time
+
+
+def merge_bwts(bwt0: torch.Tensor, bwt1: torch.Tensor, bits: torch.Tensor,
+               chunk: int = MERGE_CHUNK) -> torch.Tensor:
     """The merged BWT: bwt1's symbols where bits is set, bwt0's elsewhere
-    (uint8 tensors on bits' device)."""
-    out = torch.empty(bits.numel(), dtype=torch.uint8, device=bits.device)
-    out[~bits] = bwt0
-    out[bits] = bwt1
+    (uint8 tensors on bits' device), `chunk` merged symbols at a time, so
+    a masked write's index list is a chunk's, not the whole BWT's."""
+    n = bits.numel()
+    out = torch.empty(n, dtype=torch.uint8, device=bits.device)
+    starts = range(0, n, chunk)
+    ones = torch.stack([bits[lo: lo + chunk].sum() for lo in starts]
+                       ).tolist() if n else []
+    o0 = o1 = 0
+    for lo, c1 in zip(starts, ones):
+        m = bits[lo: lo + chunk]
+        c0 = m.numel() - c1
+        part = out[lo: lo + chunk]
+        part[m] = bwt1[o1: o1 + c1]
+        part[~m] = bwt0[o0: o0 + c0]
+        o0, o1 = o0 + c0, o1 + c1
     return out
+
+
+# Seconds and device peaks (bytes, on CUDA) by part of the last merge_files
+# call, for measurement: the restores, gap walks, interleaves and rebuilds
+# of the running index summed over the folds, the host copy with the RLE,
+# and the dump.
+FILE_STATS = {"seconds": {}, "device_peak": {}}
+
+
+def merge_files(paths, out: str, device) -> None:
+    """`merge`: the .fmd files folded left to right on `device` (each fold
+    a gap walk and an interleave), the merged BWT run-length coded on the
+    host and written to `out` ("-": standard output)."""
+    from fermi_tpu_torch import rld
+
+    secs, peak = {}, {}
+    FILE_STATS.update(seconds=secs, device_peak=peak)
+    on_card = device.type == "cuda"
+
+    @contextlib.contextmanager
+    def part(name):
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        yield
+        if on_card:
+            torch.cuda.synchronize(device)
+            peak[name] = max(peak.get(name, 0),
+                             torch.cuda.max_memory_allocated(device))
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+
+    with part("restore"):
+        e0 = FMDIndex.restore(paths[0], device)
+    bwt = e0.bwt()
+    for fn in paths[1:]:
+        if e0 is None:
+            with part("rebuild"):
+                e0 = FMDIndex._from_symbols(bwt)
+        with part("restore"):
+            e1 = FMDIndex.restore(fn, device)
+        with part("gap_walk"):
+            bits = compute_gap_bits(e0, e1)
+        with part("merge_bwts"):
+            bwt = merge_bwts(bwt, e1.bwt(), bits)
+        e0 = e1 = bits = None           # freed before the next rebuild
+        sys.stderr.write(f"[M::merge] merged `{fn}'\n")
+    with part("rle"):
+        runs = rld.Runs.from_bwt(bwt.cpu().numpy())
+    del bwt
+    with part("dump"):
+        rld.write_fmd(runs, out)
 
 
 def fm_merge(e0: FMDIndex, bwt0: np.ndarray, e1: FMDIndex, bwt1: np.ndarray,

@@ -500,24 +500,14 @@ def _add_merge(sub):
 def cmd_merge(args):
     """The indexes folded left to right, each merge on the device."""
     import os
-    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch import resolve_device
     from fermi_tpu_torch.algos import merge as mg
-    from fermi_tpu_torch.index.fmd import FMDIndex
 
     device = resolve_device(args.device)
     if args.out != "-" and not args.force and os.path.exists(args.out):
         sys.stderr.write(f"[E::merge] File `{args.out}' exists. Use -f.\n")
         return 1
-    e0 = FMDIndex.restore(args.fmds[0], device)
-    bwt = e0.bwt()
-    for fn in args.fmds[1:]:
-        if e0 is None:
-            e0 = FMDIndex._from_symbols(bwt)
-        e1 = FMDIndex.restore(fn, device)
-        bwt = mg.merge_bwts(bwt, e1.bwt(), mg.compute_gap_bits(e0, e1))
-        e0 = e1 = None              # freed before the next rebuild
-        sys.stderr.write(f"[M::merge] merged `{fn}'\n")
-    rld.write_fmd(rld.Runs.from_bwt(bwt.cpu().numpy()), args.out)
+    mg.merge_files(args.fmds, args.out, device)
     return 0
 
 

@@ -32,6 +32,9 @@ from fermi_tpu_torch.ops import rank_cuda
 
 BLOCK_BITS = 7
 BLOCK = 1 << BLOCK_BITS  # 128 symbols per occ block
+# Fused rank rows are built below this many symbols, where every occ count
+# fits 32 bits; a test lowers it to take the unfused layout on a small index.
+FUSED_MAX = 2**32 - BLOCK
 
 
 def _pick_idtype(n: int) -> torch.dtype:
@@ -125,7 +128,7 @@ class FMDIndex:
     def _assemble(blocks, occ, cnt, mcnt, packed, fused, n) -> "FMDIndex":
         dev = blocks.device
         dtype = _pick_idtype(n)
-        if fused is None and n < 2**32 - BLOCK:
+        if fused is None and n < FUSED_MAX:
             fused = _fuse_rows(packed, occ)
         return FMDIndex(
             bwt_blocks=blocks,

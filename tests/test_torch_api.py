@@ -15,9 +15,11 @@ from fermi_tpu.cli.main import main as jmain
 from fermi_tpu_torch import api as tapi
 from fermi_tpu_torch.cli.main import main as tmain
 
+from native_lock import load_fermi_tpu_native
 from util import revcomp_str
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def _reads(seed=3, n=240, glen=2000, err=0.01, with_n=False):

@@ -16,12 +16,14 @@ from fermi_tpu_torch.construct import suffix as tsuf
 from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
 from fermi_tpu_torch.core import dna as tdna, fastx as tfastx
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads, revcomp_str, write_fasta
 
 # The port's CPU ops are small: one thread each keeps parallel test
 # workers from oversubscribing the cores, where OpenMP spin-waits
 # slow every op by orders of magnitude.
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def _read_sets():

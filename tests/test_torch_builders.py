@@ -16,9 +16,11 @@ from fermi_tpu.construct.wsort import wsort_bwt as j_wsort
 from fermi_tpu.core import dna
 from fermi_tpu_torch.construct import bcr_device, blocked, wsort
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads, write_fasta
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def _cases():

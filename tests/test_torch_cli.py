@@ -11,12 +11,14 @@ import torch
 from fermi_tpu.cli.main import main as jmain
 from fermi_tpu_torch.cli.main import main as tmain
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads, write_fasta
 
 # The port's CPU ops are small: one thread each keeps parallel test
 # workers from oversubscribing the cores, where OpenMP spin-waits
 # slow every op by orders of magnitude.
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def _run(main, argv):

@@ -23,9 +23,11 @@ from fermi_tpu_torch.algos import correct as tec
 from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.search import ecfix_device as tfix
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd, write_fastq
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 GLEN, L = 5000, 80
 

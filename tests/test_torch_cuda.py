@@ -815,3 +815,59 @@ def test_unfused_rows_card(pair):
     qry = [dna.encode(s) for s in reads[::5]]
     assert smem.smem_all(wide, qry) == smem.smem_all(cidx, qry)
     assert rank_cuda.LAUNCHES["rank_block_counts"] > before + 1
+
+
+def test_merge_with_self_unfused_card(card, tmp_path, monkeypatch):
+    """`merge x.fmd x.fmd` on the card (the shape of the smoke test's
+    index past 2^32): the CPU's bytes.  The merged index restored without
+    fused rows (FUSED_MAX lowered: the layout past 2^32 - 128 symbols) on
+    the card: K1's `rank_block_counts` equal to its plain version on the
+    gathered rows, rank6 at every k equal to the CPU's, and `exact`'s
+    SMEMs equal to the native engine's and to x's with every interval
+    doubled, through `rank_block_counts` alone."""
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    reads = random_reads(150, seed=5, with_genome=True, genome_len=4000)
+    fa, x = str(tmp_path / "r.fa"), str(tmp_path / "x.fmd")
+    write_fasta(fa, reads)
+    before = rank_cuda.LAUNCHES["rank6_fused"]
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert main(["build", "--device", "cpu", "-fo", x, fa]) == 0
+        for dev in ("cuda", "cpu"):
+            assert main(["merge", "--device", dev, "-fo",
+                         str(tmp_path / f"{dev}.fmd"), x, x]) == 0
+    # the card's gap walk, over two indexes with fused rows
+    assert rank_cuda.LAUNCHES["rank6_fused"] > before
+    merged = str(tmp_path / "cuda.fmd")
+    assert open(merged, "rb").read() == \
+        open(str(tmp_path / "cpu.fmd"), "rb").read()
+    one = tfmd.FMDIndex.restore(x, "cpu")
+    monkeypatch.setattr(tfmd, "FUSED_MAX", 0)
+    idx = tfmd.FMDIndex.restore(merged, card)
+    cidx = tfmd.FMDIndex.restore(merged, "cpu")
+    assert idx.fused is None and idx.idtype == torch.int64
+    assert idx.total == 2 * one.total
+    ks = torch.arange(idx.total + 1)
+    rows = idx.bwt_packed[(ks >> 7).to(card)]
+    off = (ks & 127).to(torch.int32)
+    assert torch.equal(
+        rank_cuda.rank_block_counts(rows, off.to(card)).cpu(),
+        rank_cuda.rank_block_counts_plain(rows.cpu(), off))
+    before = dict(rank_cuda.LAUNCHES)
+    assert torch.equal(idx.rank6(ks.to(card)).cpu(), cidx.rank6(ks))
+    rng = np.random.default_rng(8)
+    qry = []
+    for s in reads[::5]:
+        b = dna.encode(s)
+        b[rng.integers(0, len(b), 2)] = rng.integers(1, 5, 2)
+        qry.append(b)
+    got = smem.smem_all(idx, qry)
+    assert got == smem.smem_all_native(idx, qry)
+    assert got == [[(s, e, 2 * n, c, 2 * kf) for s, e, n, c, kf in m]
+                   for m in smem.smem_all(one, qry)]
+    assert sum(map(len, got)) > len(qry)
+    assert rank_cuda.LAUNCHES["rank_block_counts"] > \
+        before["rank_block_counts"] + 1
+    assert rank_cuda.LAUNCHES["rank6_fused"] == before["rank6_fused"]

@@ -28,9 +28,11 @@ from fermi_tpu.dist import sharded as jsh
 from fermi_tpu.index.fmd import FMDIndex as JIndex
 from fermi_tpu.search.smem import smem_all
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 1), (1, 2), (2, 2)]

@@ -13,12 +13,14 @@ from fermi_tpu.search import extend as jex
 from fermi_tpu_torch.index.fmd import FMDIndex as TIndex
 from fermi_tpu_torch.search import extend as tex
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads
 
 # The port's CPU ops are small: one thread each keeps parallel test
 # workers from oversubscribing the cores, where OpenMP spin-waits
 # slow every op by orders of magnitude.
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 @pytest.fixture(scope="module")

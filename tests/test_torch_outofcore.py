@@ -41,9 +41,11 @@ from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.index.mmapfmd import MmapIndex
 from fermi_tpu_torch.search import smem as tsm
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd, random_reads, write_fasta, write_fastq
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -530,3 +532,53 @@ def test_dash_M_runs_under_a_memory_cap_the_dense_path_exceeds(tmp_path):
                            text=True, env=env)
     assert dense.returncode != 0 and dense.stdout == ""
     assert "failed: -9" in dense.stderr          # out of memory, reported
+
+
+def _streamed_digest(path, chunk=1 << 24):
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while block := f.read(chunk):
+            h.update(block)
+    return h.hexdigest(), os.path.getsize(path)
+
+
+@pytest.mark.slow
+def test_wide_blk_writer_equals_fermi_tpu(tmp_path):
+    """The wide `.fmd.blk` layout (256 B records, taken past 2^32 symbols)
+    of the port's fmblk_build against fermi_tpu's writer, on a synthetic
+    .fmd of just over 2^32 symbols made of random runs (many short, many
+    thousands of symbols long) from a seed: each cache (about 8.6 GB) is
+    hashed as it streams and deleted before the next is built.  The .fmd
+    bytes of both packages' encoders are compared too."""
+    rng = np.random.default_rng(2026)
+    total = 2**32 + 1000
+    n = 8_000_000
+    lengths = np.where(rng.random(n) < 0.5, rng.integers(1, 64, n),
+                       rng.integers(64, 2600, n))
+    cut = int(np.searchsorted(np.cumsum(lengths), total))
+    lengths = lengths[: cut + 1]
+    lengths[-1] -= int(lengths.sum()) - total
+    assert lengths[-1] > 0 and int(lengths.sum()) == total
+    step = rng.integers(1, 6, len(lengths))
+    symbols = (np.cumsum(step) % 6).astype(np.uint8)
+    mcnt = np.zeros(7, np.uint64)
+    mcnt[0] = total
+    mcnt[1:] = np.bincount(symbols, weights=lengths, minlength=6)
+    runs = rld.Runs(lengths.astype(np.int64), symbols, mcnt)
+    fmd = str(tmp_path / "wide.fmd")
+    rld.write_fmd(runs, fmd)
+    jfmd = str(tmp_path / "jwide.fmd")
+    jrld.write_fmd(jrld.Runs(runs.lengths, runs.symbols, mcnt), jfmd)
+    assert open(fmd, "rb").read() == open(jfmd, "rb").read()
+    assert os.path.getsize(fmd) < 64 << 20
+    digests = []
+    for ensure in (jblk.ensure_blk, tblk.ensure_blk):
+        blk = ensure(fmd, str(tmp_path / "c.blk"), n_threads=4)
+        assert blk.wide and blk.total == total
+        assert blk.n_rows == -(-total // 128) + 1
+        digests.append(_streamed_digest(blk.path))
+        os.remove(blk.path)
+    assert digests[0] == digests[1]
+    assert digests[1][1] >= 256 * (total // 128)

@@ -24,9 +24,11 @@ from fermi_tpu_torch.pipeline.driver import Pipeline as TPipeline
 from test_pipeline import make_pe_fastq
 from test_torch_scaf import linked_pair_reads
 from test_torch_unitig import long_reads
+from native_lock import load_fermi_tpu_native
 from util import write_fasta
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 ARTIFACTS = ("raw.fmd", "ec.fq.gz", "ec.fmd", "p0.mag.gz", "p1.mag.gz",
              "p2.mag.gz")

@@ -18,10 +18,13 @@ from fermi_tpu_torch import rld as trld
 from fermi_tpu_torch.index import fmd as tfmd
 from fermi_tpu_torch.ops import rank_cuda
 
+from native_lock import load_fermi_tpu_native
+
 # The port's CPU ops are small: one thread each keeps parallel test
 # workers from oversubscribing the cores, where OpenMP spin-waits
 # slow every op by orders of magnitude.
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 FIELDS = ("bwt_blocks", "occ", "cnt", "mcnt", "bwt_packed", "fused")
 

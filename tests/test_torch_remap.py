@@ -26,9 +26,11 @@ from fermi_tpu_torch.pipeline.driver import Pipeline as TPipeline
 from fermi_tpu_torch.search import smem as tsm
 
 from test_pipeline import make_pe_fastq
+from native_lock import load_fermi_tpu_native
 from util import random_reads, write_fasta
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 STAGES = ("stage_raw_fmd", "stage_correct", "stage_ec_fmd", "stage_rank",
           "stage_unitig", "stage_clean", "stage_remap")

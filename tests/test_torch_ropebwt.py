@@ -14,9 +14,11 @@ from fermi_tpu.construct import suffix as jsuffix
 from fermi_tpu_torch.cli.main import main as tmain
 from fermi_tpu_torch.construct.bprope import bpr_bwt as tbpr
 
+from native_lock import load_fermi_tpu_native
 from util import random_reads
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 FLAGS = [[], ["-N"], ["-O"], ["-F"], ["-R"], ["-N", "-R"]]
 

@@ -37,9 +37,11 @@ from fermi_tpu_torch.cli.main import main as tmain
 from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.ops import rank_cuda
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd, random_reads, revcomp_str
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def linked_pair_reads(seed=1, rl=70, insert=240):

@@ -12,9 +12,11 @@ from fermi_tpu.index.fmd import FMDIndex as JFMD
 from fermi_tpu_torch.algos import seqsort as tss
 from fermi_tpu_torch.index.fmd import FMDIndex
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd, random_reads
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,10 @@ from fermi_tpu.cli.main import main as jmain
 from fermi_tpu_torch.cli import sequtils as tsu
 from fermi_tpu_torch.cli.main import main as tmain
 
+from native_lock import load_fermi_tpu_native
+
+load_fermi_tpu_native()
+
 
 def _records(rng, n, names):
     """FASTQ text: reads of 0-60 bp (N in some, low-quality tails and

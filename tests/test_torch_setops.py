@@ -25,9 +25,11 @@ from fermi_tpu_torch.cli.main import main as tmain
 from fermi_tpu_torch.index import fmd as tfmd
 from fermi_tpu_torch.index.fmd import FMDIndex
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd, random_reads, write_fasta
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 
 def _bwt(path):
@@ -215,6 +217,87 @@ def test_cli_merge_and_recode(pair, capfdbinary):
     assert tmain(["merge", "--device", "cpu", "-o", tout, a, b]) == 1
     assert _out(capfdbinary, tmain, ["recode", b]) == \
         _out(capfdbinary, jmain, ["recode", b]) == open(b, "rb").read()
+
+
+def _doubled_sizes(exact_text):
+    """`exact`'s records with every SMEM's size (the EM line's fourth
+    field) doubled."""
+    out = []
+    for ln in exact_text.splitlines(True):
+        if ln.startswith("EM\t"):
+            f = ln.split("\t")
+            f[3] = str(2 * int(f[3]))
+            ln = "\t".join(f)
+        out.append(ln)
+    return "".join(out)
+
+
+@pytest.mark.parametrize("domain", ["int32", "int64"])
+def test_cli_merge_with_self(pair, tmp_path, monkeypatch, capsys, domain):
+    """`merge x.fmd x.fmd`, the shape of the 4.52 Gsym index the smoke
+    test makes: fermi_tpu's bytes; every SA interval doubles, so `exact`
+    prints x's records with each size doubled (the flags stay: kf doubles
+    with n_seqs); ids i and i + n_seqs unpack to x's read i.  In int64
+    every index is restored without fused rows (FUSED_MAX lowered), the
+    layout past 2^32 - 128 symbols, the merge's gap walk included."""
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.search import extend as se
+
+    x = pair["paths"][0]
+    jout, tout = str(tmp_path / "j.fmd"), str(tmp_path / "t.fmd")
+    assert jmain(["merge", "-fo", jout, x, x]) == 0
+    if domain == "int64":
+        monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+        monkeypatch.setattr(tfmd, "FUSED_MAX", 0)
+    seen = []
+    orig = TM.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        seen.append((e0.idtype, e0.fused is None, e1.fused is None))
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(TM, "compute_gap_bits", spy)
+    assert tmain(["merge", "--device", "cpu", "-fo", tout, x, x]) == 0
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+    unfused = domain == "int64"
+    assert seen == [(getattr(torch, domain), unfused, unfused)]
+
+    rng = np.random.default_rng(54)
+    qry = []
+    for s in pair["r0"][::3]:
+        b = list(s)
+        for at in rng.integers(0, len(b), 2):
+            b[at] = "ACGT"[int(rng.integers(0, 4))]
+        qry.append("".join(b))
+    qfa = str(tmp_path / "q.fa")
+    write_fasta(qfa, qry)
+    capsys.readouterr()
+    text = {}
+    for f in (x, tout):
+        assert tmain(["exact", "--device", "cpu", f, qfa]) == 0
+        text[f] = capsys.readouterr().out
+    assert text[tout] == _doubled_sizes(text[x])
+    assert text[x].count("EM\t") > len(qry)
+
+    one, two = (FMDIndex.restore(f, "cpu") for f in (x, tout))
+    assert two.total == 2 * one.total and two.n_seqs == 2 * one.n_seqs
+    assert two.idtype == getattr(torch, domain)
+    assert (two.fused is None) == unfused
+    ids = np.arange(one.n_seqs)
+    want, _ = se.retrieve_strings(one, ids)
+    for lo in (0, one.n_seqs):
+        got, _ = se.retrieve_strings(two, ids + lo)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert [dna.decode(want[2 * i]) for i in range(3)] == pair["r0"][:3]
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 28])
+def test_merge_bwts_chunks(pair, chunk):
+    """The interleave a chunk at a time gives fermi_tpu's merged BWT at
+    every chunk length."""
+    b0, b1 = (torch.from_numpy(pair[k]) for k in ("b0", "b1"))
+    bits = torch.from_numpy(pair["bits"])
+    got = TM.merge_bwts(b0, b1, bits, chunk=chunk)
+    assert np.array_equal(got.numpy(), pair["merged"])
 
 
 def test_cli_build_append(pair):

@@ -25,9 +25,11 @@ from fermi_tpu_torch.cli import main as tcli
 from fermi_tpu_torch.index.fmd import FMDIndex
 from fermi_tpu_torch.search import unitig_links as TL
 
+from native_lock import load_fermi_tpu_native
 from util import build_my_fmd
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 # name: (seed, genome bp, read bp, coverage, max substitution rate,
 #        exact duplicates, min_match, batch)

@@ -36,9 +36,11 @@ from fermi_tpu_torch.pipeline.driver import Pipeline as TPipeline
 from fermi_tpu_torch.search import smem as tsm
 
 from test_pipeline import make_pe_fastq
+from native_lock import load_fermi_tpu_native
 from util import random_reads
 
 torch.set_num_threads(1)
+load_fermi_tpu_native()
 
 MAX_TEXT = 2000                 # prefix doubling's limit, patched
 BLOCK = 1500                    # the blocked builder's block, patched
