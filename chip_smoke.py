@@ -116,7 +116,8 @@ D/UW-3/CX), 30x of 100 bp reads:
   Mbp genome (25x, insert 300 +- 30, 0.5% substitutions) as FASTQ, the
   pipeline's raw_fmd stage on the card (the blocked builder folds 54
   blocks past 2^31 symbols), the index restored once in the int64 domain
-  with fused rows, then `chkbwt -r`, rank6 at 64 positions against a host
+  with fused rows (its device peak held to the layout, 2.75 B a symbol,
+  plus 6 GB), then `chkbwt -r`, rank6 at 64 positions against a host
   scan, `exact` of 20,000 matched reads byte-equal to the native engine and
   to `exact -M`, `unpack` of 1,000 ids against the reads; seconds by part,
   device and host peaks; K1 at the main path's shape on the wide rows, and
@@ -124,13 +125,20 @@ D/UW-3/CX), 30x of 100 bp reads:
 - an index past 2^32 symbols, inside the wide tier: `merge` of the 2.26
   Gsym index with itself on the card (4,524,800,000 symbols: past 2^32 -
   128 every index is int64 without fused rows, rank6 a row gather and K1's
-  `rank_block_counts`), restored once, then `chkbwt -r`, rank6 at 64
-  positions (half past 2^32) against a host scan, `exact` of the first
-  4,096 wide queries byte-equal to the native engine, to `exact -M` over
-  the 256 B-record .fmd.blk and to the wide index's records with every
-  size doubled, `unpack` of ids x and x + n_seqs against the reads;
-  seconds and device peaks by part, host peak, file sizes, K1's launches
-  of each entry.
+  `rank_block_counts`), restored once (its device peak held to the
+  layout, 2.0 B a symbol, plus 6 GB), then `exact` of the first 4,096 wide
+  queries byte-equal to the native engine, to `exact -M` over the 256
+  B-record .fmd.blk and to the wide index's records with every size
+  doubled, `unpack` of ids x and x + n_seqs against the reads; seconds and
+  device peaks by part, host peak, file sizes, K1's launches of each entry;
+- an index past 2^33 symbols on one card, after it: `merge` of that
+  4.52 Gsym index with itself on the card (9,049,600,000 symbols, the gap
+  walk on `rank_block_counts`), restored a slice at a time (its device
+  peak held to 2.0 B a symbol plus 6 GB), then `chkbwt -r`, rank6 at 64
+  positions (half past 2^33) against a scan of the runs on the host,
+  `exact` of the 4,096 queries byte-equal to the wide index's records with
+  every size times 4, `unpack` of ids x + j * n (j < 4, n the wide
+  index's sequences) against the reads behind x; no `rank6_fused` launch.
 
 Kernel times (`ms`) are device time alone: launches on several input sets
 captured in a CUDA graph and replayed between two events, with the
@@ -742,14 +750,12 @@ def exact_batch(q_fa, lo=N_CROSS, n=4096):
     return seqs
 
 
-def k1_stream(idx, seqs, clock_hz, against=(), tag="k1_stream",
-              spread=True):
+def k1_stream(idx, seqs, clock_hz, against=()):
     """K1 on the keys of every loop step of one `exact` batch, captured from
     FMDIndex.rank6, with the dead slots' keys as fermi_tpu spreads them and
-    at 0 (this port's; only at 0 without `spread`): device time per step
-    against the bound, and each tree of `against` in turns with this one.
-    Returns the spread keys of every step, in order (None without
-    `spread`), and the figures logged."""
+    at 0 (this port's): device time per step against the bound, and each
+    tree of `against` in turns with this one.  Returns the spread keys of
+    every step, in order, and the figures logged."""
     from fermi_tpu_torch.ops import rank_cuda as rc
     from fermi_tpu_torch.search import smem as sm
 
@@ -764,9 +770,8 @@ def k1_stream(idx, seqs, clock_hz, against=(), tag="k1_stream",
     steps = len(rec)
     live = sum(int((k != -1).sum()) for k in rec)
     nkeys = sum(k.numel() for k in rec)
-    fills = [("zero", lambda k: torch.where(k == -1, 0, k))]
-    if spread:
-        fills.insert(0, ("spread", spread_fill(idx)))
+    fills = [("spread", spread_fill(idx)),
+             ("zero", lambda k: torch.where(k == -1, 0, k))]
     res = dict(steps=steps, keys_per_step=nkeys / steps,
                live_keys_per_step=live / steps, live_share=live / nkeys)
     err = 0
@@ -798,13 +803,13 @@ def k1_stream(idx, seqs, clock_hz, against=(), tag="k1_stream",
             spread_keys = [x.view(k.shape) for x, k in zip(keys, rec)]
         del keys, fns
     res["max_abs_err"] = err
-    log(tag, **res)
+    log("k1_stream", **res)
     if err:
         raise AssertionError(f"K1 differs from its plain version: {err}")
     return spread_keys, res
 
 
-def profile_exact(idx, seqs, keys=None, tag="profile_exact"):
+def profile_exact(idx, seqs, keys=None):
     """Where one `exact` batch (4,096 reads, one smem_all call) spends its
     time on the card: the call timed alone after a warm-up at the learned
     width, then once under torch.profiler for device time by kernel.  The
@@ -860,7 +865,7 @@ def profile_exact(idx, seqs, keys=None, tag="profile_exact"):
         k1_device_s=k1, k1_device_us_per_step=1e6 * k1 / max(steps, 1),
         device_ops_per_step=n_dev / max(steps, 1),
         top_device_us={k[:60]: v for k, v in top})
-    log(tag, **info)
+    log("profile_exact", **info)
     return mems, info
 
 
@@ -2850,11 +2855,12 @@ WIDE_INSERT, WIDE_INSERT_SD = 300, 30
 WIDE_ERR = 0.005                # substitutions, quality 15 (38 elsewhere)
 WIDE_CHUNK = 1 << 19            # pairs drawn and written at a time
 WIDE_QUERIES = 20_000           # matched `exact` reads, 1% fresh substitutions
-WIDE_PROFILED = 4096            # of them, the batch of k1_stream and profile
 WIDE_SPOTS = 64                 # rank6 positions checked by a host scan
 WIDE_MIN_SYMBOLS = 2**31        # the index must reach the int64 domain
 HUGE_MIN_SYMBOLS = 2**32        # the merged index must pass 2^32
 HUGE_QUERIES = 4096             # of the wide queries, searched in [huge]
+GIANT_MIN_SYMBOLS = 2**33       # [huge] merged with itself must pass 2^33
+RESTORE_SLACK = 6e9             # restore's device peak beyond the layout, B
 
 
 def wide_reads(rng, path, n_pairs):
@@ -2906,44 +2912,88 @@ def host_peak_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def host_rank_scan(flat, ks):
-    """rank6 of the BWT `flat` at each of the sorted positions ks, by a
-    running bincount on the host (no K1)."""
+def runs_rank_scan(runs, ks):
+    """rank6 of the BWT that `runs` code at each of the sorted positions
+    ks, from the runs on the host (no K1, no device index), 2^20 runs at a
+    time: the runs wholly before k by weighted bincounts, then the part
+    of k's run.  Its buffers are a chunk's (a cumulative sum of every run
+    would page-fault in 8 B a run of fresh memory)."""
+    lens, syms = runs.lengths, runs.symbols
+    step = 1 << 20
+    ends = np.empty(step, np.int64)
     scan = np.zeros((len(ks), 6), np.int64)
     acc = np.zeros(6, np.int64)
-    prev = 0
-    for t, k in enumerate(ks):
-        # 1 Mi-symbol slices: bincount's int64 copy of each stays in cache
-        for a in range(prev, k, 1 << 20):
-            acc += np.bincount(flat[a: min(k, a + (1 << 20))],
-                               minlength=6)[:6]
-        scan[t] = acc
-        prev = k
+    done = t = 0
+    for a in range(0, lens.size, step):
+        ln, sy = lens[a: a + step], syms[a: a + step]
+        e = ends[: ln.size]
+        np.cumsum(ln, out=e)
+        e += done
+        while t < len(ks) and ks[t] < e[-1]:
+            r = int(np.searchsorted(e, ks[t], "right"))
+            scan[t] = acc + np.bincount(sy[:r], weights=ln[:r],
+                                        minlength=6)[:6].astype(np.int64)
+            scan[t, sy[r]] += ks[t] - (e[r] - ln[r])
+            t += 1
+        # the float sums of 2^20 lengths stay exact
+        acc += np.bincount(sy, weights=ln, minlength=6)[:6].astype(np.int64)
+        done = int(e[-1])
+    scan[t:] = acc
     return scan
+
+
+def restore_checked(tag, dev, path):
+    """`path` read and restored on `dev` (read_fmd, FMDIndex.from_runs),
+    timed; its device peak above what was allocated before it must stay
+    within the index's own arrays (fermi_tpu's layout: 2.0 B a symbol
+    without fused rows, 2.75 B with them, in the int64 domain) plus
+    RESTORE_SLACK.  Returns (runs, index, seconds, the numbers: the read's
+    seconds, the layout's bytes, the peak)."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.index.fmd import BLOCK, FMDIndex
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    info = {}
+
+    def restore():
+        t0 = time.perf_counter()
+        runs = rld.read_fmd(path)
+        info["read_s"] = time.perf_counter() - t0
+        return runs, FMDIndex.from_runs(runs, dev)
+    (runs, idx), secs, peak = timed(dev, restore)
+    layout = sum(a.numel() * a.element_size() for a in (
+        idx.bwt_blocks, idx.occ, idx.bwt_packed, idx.fused) if a is not None)
+    per_row = BLOCK * (2.75 if idx.fused is not None else 2.0)
+    rows = idx.bwt_blocks.shape[0]
+    info.update(layout_gb=layout / 1e9,
+                layout_bytes_per_symbol=layout / max(idx.total, 1),
+                peak_gb=(peak - base) / 1e9, resident_before_gb=base / 1e9)
+    if layout > rows * per_row or peak - base > layout + RESTORE_SLACK:
+        raise AssertionError(f"{tag} restore: {info}")
+    return runs, idx, secs, info
 
 
 def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     """The wide index tier end to end: 2 x n_pairs reads written as FASTQ,
     the driver's raw_fmd stage on `dev` (native encoders, the text, the
     blocked builder past 2^31 symbols, RLE and dump on the host), the index
-    restored once (int64 domain, fused rows), then over it: `chkbwt -r`
-    (its command's check_ranks), rank6 at WIDE_SPOTS positions against a
-    host bincount scan, `exact` of WIDE_QUERIES matched reads on the card
+    restored once (int64 domain, fused rows; restore_checked), then over
+    it: `chkbwt -r` (its command's check_ranks), rank6 at WIDE_SPOTS
+    positions against a scan of the runs on the host, `exact` of WIDE_QUERIES matched reads on the card
     byte-equal to the native engine over the same index's host arrays and
     to the CLI's `exact -M` over the .fmd.blk record cache, and `unpack` of
     N_UNPACK ids against the reads.  Every step is a gate.  Then K1 timed
-    at the main path's shape on the wide rows, and one WIDE_PROFILED batch
-    through k1_stream and profile_exact for ROADMAP item 3a's rule.
-    Last, before the files go, huge_phase over raw.fmd.  Returns K1's
-    launches on the paths: rank6_fused's (the wide index's queries and the
-    merge's gap walk), rank_block_counts' (the merged index's queries)."""
-    from fermi_tpu_torch import rld
+    at the main path's shape on the wide rows.
+    Last, before the files go, huge_phase over raw.fmd and giant_phase
+    over huge_phase's index.  Returns K1's launches on the paths:
+    rank6_fused's (the wide index's queries and [huge]'s gap walk),
+    rank_block_counts' ([huge]'s merged index, [giant]'s merge and index)."""
     from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
                                           write_exact)
     from fermi_tpu_torch.construct import blocked
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.index.blkidx import ensure_blk
-    from fermi_tpu_torch.index.fmd import FMDIndex
     from fermi_tpu_torch.pipeline import driver
     from fermi_tpu_torch.search import extend as se
     from fermi_tpu_torch.search import smem as sm
@@ -2992,12 +3042,10 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     if blocked.STATS["blocks"] < 2:
         raise AssertionError("the wide build did not take the blocked path")
 
-    def restore():
-        runs = rld.read_fmd(fmd)
-        return runs.mcnt.copy(), len(runs.lengths), FMDIndex.from_runs(
-            runs, dev)
-    (mcnt, out["runs"], idx), secs["restore"], peak["restore"] = timed(
-        dev, restore)
+    runs, idx, secs["restore"], out["restore"] = restore_checked(
+        "wide", dev, fmd)
+    peak["restore"] = out["restore"]["peak_gb"] * 1e9
+    out["runs"] = len(runs.lengths)
     occ_max = int(idx.occ[-1, :6].max())
     out.update(idtype=str(idx.idtype), fused=idx.fused is not None,
                cnt_top=int(idx.cnt[5]), occ_max=occ_max,
@@ -3011,28 +3059,26 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     e = io.StringIO()
     with contextlib.redirect_stderr(e):
         rc, secs["chkbwt"], peak["chkbwt"] = timed(
-            dev, lambda: check_ranks(idx, mcnt))
+            dev, lambda: check_ranks(idx, runs.mcnt))
     if rc or "rank check passed" not in e.getvalue():
         raise AssertionError(f"chkbwt -r of the wide index: {e.getvalue()}")
     out["chkbwt_chunks"] = -(-idx.total // CHKBWT_CHUNK)
 
-    # rank6 at sampled positions, half of them past 2^31, against a host
-    # scan of the BWT that does not use K1
+    # rank6 at sampled positions, half of them past 2^31, against a scan
+    # of the runs on the host that does not use K1
     t0 = time.perf_counter()
-    blocks_h = sm._native_index_arrays(idx)[0]
-    flat = blocks_h.reshape(-1)[: idx.total]
     lo_k = min(WIDE_MIN_SYMBOLS, idx.total)
     ks = np.sort(np.concatenate([
         rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
         rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
     got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
-    scan = host_rank_scan(flat, ks)
-    spots_ok = int((got == scan).all(1).sum())
+    spots_ok = int((got == runs_rank_scan(runs, ks)).all(1).sum())
     secs["rank_spots"] = time.perf_counter() - t0
     out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
                rank_spots_past_2_31=int((ks >= 2**31).sum()))
     if spots_ok != len(ks):
         raise AssertionError(f"rank6 spot check: {spots_ok}/{len(ks)}")
+    del runs
 
     # exact on the card (the CLI's batches and records), the native engine
     # over the same index's host arrays, and `exact -M`
@@ -3061,9 +3107,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     (got, _), secs["unpack"], _ = timed(
         dev, lambda: se.retrieve_strings(idx, ids))
     for x, s in zip(ids, got):
-        r = reads[x // 2] + 1
-        want = r if x % 2 == 0 else (5 - r)[::-1]
-        if not np.array_equal(s, want):
+        if not np.array_equal(s, read_behind(reads, x)):
             raise AssertionError(f"wide unpack of id {x}")
     k1 = launches()["rank6_fused"]
     out["device_peak_gb"] = {k: v / 1e9 for k, v in peak.items()}
@@ -3081,25 +3125,10 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
         raise AssertionError("wide exact: card != exact -M")
     out.update(exact_reads_per_s_M=WIDE_QUERIES / secs["exact_M"],
                host_peak_gib=host_peak_gib())
-    del blocks_h, flat
 
-    # K1 on the wide rows: the main path's shape, then one batch's steps,
-    # and the batch profiled (ROADMAP item 3a's rule)
+    # K1 on the wide rows at the main path's shape
     k1_main = k1_at_main_path_shape(idx, maxi, rng, clock_hz,
                                     tag="wide_k1_main_shape")
-    batch = seqs[:WIDE_PROFILED]
-    _, stream = k1_stream(idx, batch, clock_hz, tag="wide_k1_stream",
-                          spread=False)
-    prof_mems, prof = profile_exact(idx, batch, tag="wide_profile_exact")
-    if prof_mems != mems[:WIDE_PROFILED]:
-        raise AssertionError("the profiled batch's SMEMs changed")
-    k1_s = stream["zero"]["us_per_step"] * stream["steps"] / 1e6
-    share = k1_s / prof["wall_s"]
-    idle = prof["idle_share"]
-    close = share < 0.25 or (isinstance(idle, float) and idle >= 0.5)
-    log("wide_3a", k1_graph_s=k1_s, wall_s=prof["wall_s"],
-        k1_share_of_wall=share, idle_share=idle,
-        decision="close" if close else "keep")
 
     # [wide]'s records of the queries [huge] searches again
     wide_text = io.StringIO()
@@ -3115,18 +3144,32 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     os.remove(blk.path)
     k1_merge, k1_huge = huge_phase(rng, wd, dev, fmd, reads, q_fa,
                                    wide_text.getvalue(), (total, n_seqs))
+    # [giant]'s unpack oracle, then the reads go before its merge
+    ids = np.sort(rng.choice(n_seqs, N_UNPACK, replace=False))
+    behind = [read_behind(reads, x) for x in ids]
+    del reads
+    k1_giant = giant_phase(rng, wd, dev, os.path.join(wd, "huge.fmd"), q_fa,
+                           wide_text.getvalue(), (total, n_seqs),
+                           (ids, behind))
     shutil.rmtree(wd)
-    return k1 + k1_merge, k1_huge
+    return k1 + k1_merge, k1_huge + k1_giant
 
 
-def doubled_sizes(exact_text):
+def read_behind(reads, x):
+    """The nt6 read of sequence id x of an index of `reads` (nt4 rows)
+    with both strands: read x // 2, reverse-complemented when x is odd."""
+    r = reads[x // 2] + 1
+    return r if x % 2 == 0 else (5 - r)[::-1]
+
+
+def scaled_sizes(exact_text, factor):
     """`exact`'s records with every SMEM's size (the EM line's fourth
-    field) doubled."""
+    field) times `factor`."""
     out = []
     for ln in exact_text.splitlines(True):
         if ln.startswith("EM\t"):
             f = ln.split("\t")
-            f[3] = str(2 * int(f[3]))
+            f[3] = str(factor * int(f[3]))
             ln = "\t".join(f)
         out.append(ln)
     return "".join(out)
@@ -3139,19 +3182,18 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
     (`wide_shape` is the wide index's (total, n_seqs)).  Past 2^32 - 128
     symbols the restored index is int64 without fused rows, so every rank
     below is a row gather and K1's `rank_block_counts`.  Over it, each a
-    gate: `chkbwt -r`; rank6 at WIDE_SPOTS positions, half past 2^32,
-    against a host scan; `exact` of the first HUGE_QUERIES queries of q_fa
-    on the card, byte-equal to the native engine over the same index's
-    host arrays, to `exact -M` over the new .fmd.blk (256 B records) and
+    gate: the restore's device peak within its layout plus RESTORE_SLACK;
+    `exact` of the first HUGE_QUERIES queries of q_fa on the card,
+    byte-equal to the native engine over the same index's host arrays, to
+    `exact -M` over the new .fmd.blk (256 B records, deleted after) and
     to `wide_text` (the wide index's records of them) with every size
     doubled: each SA interval doubles, kf with n_seqs, so the flags stay;
     `unpack` of N_UNPACK ids x and x + n_seqs, both the read behind x.
-    Returns K1's launches: rank6_fused's in the merge, rank_block_counts'
-    on the merged index."""
-    from fermi_tpu_torch import rld
+    `chkbwt -r` and the rank spots past 2^32 run in giant_phase, past
+    2^33, over the same rows.  Returns K1's launches: rank6_fused's in the
+    merge, rank_block_counts' on the merged index."""
     from fermi_tpu_torch.algos import merge as mg
-    from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
-                                          write_exact)
+    from fermi_tpu_torch.cli.main import write_exact
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.index import fmd as fmd_mod
     from fermi_tpu_torch.index.blkidx import ensure_blk
@@ -3185,13 +3227,12 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
                     or k1_merge["rank_block_counts"]):
         raise AssertionError(f"huge: the merge's launches: {k1_merge}")
 
-    def restore():
-        runs = rld.read_fmd(big)
-        return runs.mcnt.copy(), len(runs.lengths), \
-            fmd_mod.FMDIndex.from_runs(runs, dev)
     reset_launches()
-    (mcnt, out["runs"], idx), secs["restore"], peak["restore"] = timed(
-        dev, restore)
+    runs, idx, secs["restore"], out["restore"] = restore_checked(
+        "huge", dev, big)
+    peak["restore"] = out["restore"]["peak_gb"] * 1e9
+    out["runs"] = len(runs.lengths)
+    del runs
     out.update(symbols=idx.total, idtype=str(idx.idtype),
                fused=idx.fused is not None,
                host_peak_gib_restore=host_peak_gib())
@@ -3201,30 +3242,6 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
         raise AssertionError(f"huge index: {idx.total} symbols, "
                              f"{idx.n_seqs} sequences, {idx.idtype}, "
                              f"fused {idx.fused is not None}")
-
-    e = io.StringIO()
-    with contextlib.redirect_stderr(e):
-        rc, secs["chkbwt"], peak["chkbwt"] = timed(
-            dev, lambda: check_ranks(idx, mcnt))
-    if rc or "rank check passed" not in e.getvalue():
-        raise AssertionError(f"chkbwt -r of the huge index: {e.getvalue()}")
-    out["chkbwt_chunks"] = -(-idx.total // CHKBWT_CHUNK)
-
-    t0 = time.perf_counter()
-    blocks_h = sm._native_index_arrays(idx)[0]
-    flat = blocks_h.reshape(-1)[: idx.total]
-    lo_k = min(HUGE_MIN_SYMBOLS, idx.total)
-    ks = np.sort(np.concatenate([
-        rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
-        rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
-    got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
-    spots_ok = int((got == host_rank_scan(flat, ks)).all(1).sum())
-    secs["rank_spots"] = time.perf_counter() - t0
-    out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
-               rank_spots_past_2_32=int((ks >= 2**32).sum()))
-    if spots_ok != len(ks):
-        raise AssertionError(f"huge rank6 spot check: {spots_ok}/{len(ks)}")
-    del blocks_h, flat
 
     # exact on the card, the native engine, [wide]'s records doubled
     with open(q_fa) as f:
@@ -3237,7 +3254,7 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
     write_exact(idx, names, seqs, mems, card)
     out.update(exact_reads_per_s=len(seqs) / secs["exact_card"],
                smems=sum(len(m) for m in mems))
-    if card.getvalue() != doubled_sizes(wide_text):
+    if card.getvalue() != scaled_sizes(wide_text, 2):
         raise AssertionError("huge exact: the card's records != the wide "
                              "index's with every size doubled")
     t0 = time.perf_counter()
@@ -3251,10 +3268,7 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
     (got, _), secs["unpack"], peak["unpack"] = timed(
         dev, lambda: se.retrieve_strings(idx, both))
     for x, s in zip(both, got):
-        y = x % wide_shape[1]
-        r = reads[y // 2] + 1
-        want = r if y % 2 == 0 else (5 - r)[::-1]
-        if not np.array_equal(s, want):
+        if not np.array_equal(s, read_behind(reads, x % wide_shape[1])):
             raise AssertionError(f"huge unpack of id {x}")
     k1 = launches()
     if on_card and (k1["rank_block_counts"] < 1 or k1["rank6_fused"]):
@@ -3277,6 +3291,7 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
         "exact -M", lambda: run_cli(["exact", "-M", big, hq_fa]))
     if text != card.getvalue():
         raise AssertionError("huge exact: card != exact -M")
+    os.remove(blk.path)
     out.update(exact_reads_per_s_M=len(seqs) / secs["exact_M"],
                host_peak_gib=host_peak_gib())
     log("huge", seconds=secs,
@@ -3284,6 +3299,126 @@ def huge_phase(rng, wd, dev, fmd, reads, q_fa, wide_text, wide_shape):
         k1_merge=k1_merge, k1_merged_index=k1, **out,
         phase_seconds=time.perf_counter() - t_phase)
     return k1_merge["rank6_fused"], k1["rank_block_counts"]
+
+
+def giant_phase(rng, wd, dev, big, q_fa, wide_text, wide_shape, unpack):
+    """An index past 2^33 symbols on one card (fermi's block-and-merge use
+    at the size of a 100-150 Mbp genome's reads): `merge` of [huge]'s
+    index `big` with itself through the CLI on `dev`, the gap walk over
+    two resident 4.52 Gsym indexes without fused rows (rank_block_counts
+    alone), four times [wide]'s symbols and sequences (`wide_shape`: its
+    (total, n_seqs)).  The merged index is restored a slice at a time.
+    Each a gate: the restore's device peak within its layout (2.0 B a
+    symbol) plus RESTORE_SLACK; `chkbwt -r`; rank6 at WIDE_SPOTS positions,
+    half past 2^33, against a scan of the runs on the host; `exact` of the
+    first HUGE_QUERIES queries of q_fa on the card byte-equal to
+    `wide_text` (the wide index's records of them) with every size times
+    4; `unpack` of ids x + j * n (j < 4, n: [wide]'s n_seqs) for the ids x
+    of `unpack`, each the read behind x; no rank6_fused launch.  No
+    .fmd.blk: `-M` past 2^32 keeps its gate in [huge].  Returns the
+    rank_block_counts launches of the merge and the merged index."""
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
+                                          write_exact)
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.search import extend as se
+    from fermi_tpu_torch.search import smem as sm
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    secs, peak = {}, {}
+    out = {"disk_free_gb": shutil.disk_usage(wd).free / 1e9,
+           "host_peak_gib_before": host_peak_gib()}
+    giant = os.path.join(wd, "giant.fmd")
+
+    reset_launches()
+    torch.cuda.empty_cache()
+    secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo", giant,
+                             big, big])[0]
+    for k, v in mg.FILE_STATS["seconds"].items():
+        secs[f"merge_{k}"] = v
+    for k, v in mg.FILE_STATS["device_peak"].items():
+        peak[f"merge_{k}"] = v
+    k1_merge = launches()
+    out.update(merge_steps=mg.STATS["steps"], merge_lanes=mg.STATS["lanes"],
+               fmd_gb=os.path.getsize(giant) / 1e9,
+               host_peak_gib_merge=host_peak_gib())
+    os.remove(big)
+    if on_card and (k1_merge["rank_block_counts"] < 1
+                    or k1_merge["rank6_fused"]):
+        raise AssertionError(f"giant: the merge's launches: {k1_merge}")
+
+    reset_launches()
+    runs, idx, secs["restore"], out["restore"] = restore_checked(
+        "giant", dev, giant)
+    peak["restore"] = out["restore"]["peak_gb"] * 1e9
+    out.update(runs=len(runs.lengths), symbols=idx.total,
+               idtype=str(idx.idtype), fused=idx.fused is not None,
+               host_peak_gib_restore=host_peak_gib())
+    if (idx.total != 4 * wide_shape[0] or idx.n_seqs != 4 * wide_shape[1]
+            or idx.total < GIANT_MIN_SYMBOLS or idx.idtype != torch.int64
+            or idx.fused is not None):
+        raise AssertionError(f"giant index: {idx.total} symbols, "
+                             f"{idx.n_seqs} sequences, {idx.idtype}, "
+                             f"fused {idx.fused is not None}")
+
+    e = io.StringIO()
+    with contextlib.redirect_stderr(e):
+        rc, secs["chkbwt"], peak["chkbwt"] = timed(
+            dev, lambda: check_ranks(idx, runs.mcnt))
+    if rc or "rank check passed" not in e.getvalue():
+        raise AssertionError(f"chkbwt -r of the giant index: {e.getvalue()}")
+    out["chkbwt_chunks"] = -(-idx.total // CHKBWT_CHUNK)
+
+    t0 = time.perf_counter()
+    lo_k = min(GIANT_MIN_SYMBOLS, idx.total)
+    ks = np.sort(np.concatenate([
+        rng.integers(0, idx.total + 1, WIDE_SPOTS // 2),
+        rng.integers(lo_k, idx.total + 1, WIDE_SPOTS - WIDE_SPOTS // 2)]))
+    got = idx.rank6(torch.from_numpy(ks).to(dev)).cpu().numpy()
+    spots_ok = int((got == runs_rank_scan(runs, ks)).all(1).sum())
+    secs["rank_spots"] = time.perf_counter() - t0
+    out.update(rank_spots=len(ks), rank_spots_exact=spots_ok,
+               rank_spots_past_2_33=int((ks >= 2**33).sum()))
+    if spots_ok != len(ks):
+        raise AssertionError(f"giant rank6 spot check: {spots_ok}/{len(ks)}")
+    del runs
+
+    # exact on the card against [wide]'s records, every size times 4
+    with open(q_fa) as f:
+        head = [next(f) for _ in range(2 * HUGE_QUERIES)]
+    names = [ln[1:].strip() for ln in head[0::2]]
+    seqs = [dna.encode(ln.strip()) for ln in head[1::2]]
+    mems, secs["exact_card"], peak["exact"] = timed(
+        dev, lambda: sm.smem_all(idx, seqs))
+    card = io.StringIO()
+    write_exact(idx, names, seqs, mems, card)
+    out.update(exact_reads_per_s=len(seqs) / secs["exact_card"],
+               smems=sum(len(m) for m in mems))
+    if card.getvalue() != scaled_sizes(wide_text, 4):
+        raise AssertionError("giant exact: the card's records != the wide "
+                             "index's with every size times 4")
+
+    # unpack: ids x + j * n are all the read behind x
+    ids, behind = unpack
+    every = np.concatenate([ids + j * wide_shape[1] for j in range(4)])
+    (got, _), secs["unpack"], peak["unpack"] = timed(
+        dev, lambda: se.retrieve_strings(idx, every))
+    for t, (x, s) in enumerate(zip(every, got)):
+        if not np.array_equal(s, behind[t % len(ids)]):
+            raise AssertionError(f"giant unpack of id {x}")
+    k1 = launches()
+    if on_card and (k1["rank_block_counts"] < 1 or k1["rank6_fused"]):
+        raise AssertionError(f"giant: the merged index's launches: {k1}")
+    del idx
+    torch.cuda.empty_cache()
+    os.remove(giant)
+    out["host_peak_gib"] = host_peak_gib()
+    log("giant", seconds=secs,
+        device_peak_gb={k: v / 1e9 for k, v in peak.items()},
+        k1_merge=k1_merge, k1_merged_index=k1, **out,
+        phase_seconds=time.perf_counter() - t_phase)
+    return k1_merge["rank_block_counts"] + k1["rank_block_counts"]
 
 
 def ptxas_report(jobs):
@@ -3405,7 +3540,8 @@ def main():
         k1_long = long_reads_phase(np.random.default_rng(args.seed + 6),
                                    workdir, gp, dev)
         # slice 10: the wide index tier, from a stream of its own
-        # and past 2^32 symbols (the wide index merged with itself)
+        # and past 2^32 and 2^33 symbols (the wide index merged with itself,
+        # then that index merged with itself)
         k1_wide, k1_unfused = wide_phase(np.random.default_rng(args.seed + 5),
                                          workdir, dev, res["maxi"], clock_hz)
     k1_launches = (res["launches"]["rank6_fused"] + ec_res["k1_launches"]

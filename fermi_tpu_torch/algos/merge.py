@@ -149,6 +149,7 @@ def merge_files(paths, out: str, device) -> None:
         if e0 is None:
             with part("rebuild"):
                 e0 = FMDIndex._from_symbols(bwt)
+            bwt = e0.bwt()              # the index's blocks: one copy
         with part("restore"):
             e1 = FMDIndex.restore(fn, device)
         with part("gap_walk"):

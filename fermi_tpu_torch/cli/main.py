@@ -242,8 +242,13 @@ def check_ranks(idx, mcnt) -> int:
     for lo in range(0, idx.total, CHKBWT_CHUNK):
         hi = min(lo + CHKBWT_CHUNK, idx.total)
         # counts of each symbol in BWT[0..k] for k in [lo, hi), as
-        # [6, hi - lo]: the scan runs along the inner dimension
-        expect = carry + torch.cumsum(bwt[lo:hi] == syms, 1)
+        # [6, hi - lo]: one scan over the six rows laid end to end, less
+        # the counts before each row (a scan along the rows' own dimension
+        # runs in a single thread block on CUDA)
+        expect = torch.cumsum((bwt[lo:hi] == syms).view(-1), 0).view(6, -1)
+        ends = expect[:, -1].clone()
+        expect[1:] -= ends[:-1, None]
+        expect += carry
         ks = torch.arange(lo + 1, hi + 1, device=device)
         bad = (idx.rank6(ks).T != expect).T.nonzero()
         if bad.numel():

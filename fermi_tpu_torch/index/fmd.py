@@ -35,6 +35,10 @@ BLOCK = 1 << BLOCK_BITS  # 128 symbols per occ block
 # Fused rank rows are built below this many symbols, where every occ count
 # fits 32 bits; a test lowers it to take the unfused layout on a small index.
 FUSED_MAX = 2**32 - BLOCK
+# Symbols a restore expands, counts and packs at a time (rounded up to a
+# block): the device memory beyond the index's own arrays is about a
+# slice's worth.  Tests lower it.
+RESTORE_CHUNK = 1 << 28
 
 
 def _pick_idtype(n: int) -> torch.dtype:
@@ -62,6 +66,53 @@ def _fuse_rows(packed: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     fused[:, 16:22] = torch.where(occ6 >= 2**31, occ6 - 2**32,
                                   occ6).to(torch.int32)
     return fused
+
+
+def _slice_rows() -> int:
+    """Block rows of one restore slice: RESTORE_CHUNK rounded up to a
+    block."""
+    return max(1, -(-RESTORE_CHUNK // BLOCK))
+
+
+def _slice_cuts(lens: np.ndarray, step: int):
+    """The restore's slice bounds 0, step, 2 step, ..., n over runs of
+    lengths `lens` (n their total) and, at each bound, the run that holds
+    it and that run's symbols before it (the bound n falls at the start of
+    a last, empty run).  Runs are summed a group at a time and only the
+    group holding a bound is scanned, so the host memory beyond the runs
+    is a group's (a cumulative sum of every run would write 8 B a run of
+    fresh host memory, whose page faults outlast the expansion itself)."""
+    group = 1 << 16
+    heads = np.arange(0, lens.size, group)
+    group_start = np.zeros(heads.size + 1, np.int64)
+    if lens.size:
+        np.cumsum(np.add.reduceat(lens, heads), out=group_start[1:])
+    n = int(group_start[-1])
+    bounds = list(range(0, n, step))
+    cut, skip = [], []
+    for b in bounds:
+        g = int(np.searchsorted(group_start, b, "right")) - 1
+        part = lens[heads[g]: heads[g] + group]
+        starts = np.cumsum(part) - part + group_start[g]
+        r = int(np.searchsorted(starts, b, "right")) - 1
+        cut.append(int(heads[g]) + r)
+        skip.append(b - int(starts[r]))
+    return bounds + [n], cut + [lens.size], skip + [0]
+
+
+def _pack_words(part: torch.Tensor) -> torch.Tensor:
+    """int32 [rows, 16] packed words of uint8 [rows, BLOCK] blocks: each
+    8-symbol group read as one little-endian int64 (symbol s in byte s),
+    its nibbles gathered into the low 32 bits (symbol s in nibble s).
+    Symbols are at most 6, so no shift crosses a sign bit."""
+    x = part.view(torch.int64)
+    for shift, mask in ((4, 0x00FF00FF00FF00FF), (8, 0x0000FFFF0000FFFF),
+                        (16, 0xFFFFFFFF)):
+        y = x >> shift          # in place: two int64 copies at most
+        y |= x
+        y &= mask
+        x = y
+    return x.to(torch.int32)
 
 
 @dataclass
@@ -93,51 +144,60 @@ class FMDIndex:
 
     @staticmethod
     def _from_symbols(bwt: torch.Tensor) -> "FMDIndex":
-        """Blocks, occ, packed words and fused rows from the BWT symbols,
-        all with torch ops on the BWT's device."""
-        dev = bwt.device
+        """The index over a BWT on the device: a padded copy of it (the
+        index's own blocks; `bwt` stays the caller's), then the layout a
+        slice at a time (_from_blocks)."""
         n = bwt.numel()
-        nb = (n + BLOCK - 1) // BLOCK
-        padded = torch.full(((nb + 1) * BLOCK,), 6, dtype=torch.uint8,
-                            device=dev)
-        padded[:n] = bwt
-        blocks = padded.view(nb + 1, BLOCK)
-        # [6, nb + 1]: each symbol's counts contiguous, so the running sum
-        # is a scan along the innermost dimension (a scan along the outer
-        # one runs one sequential thread per column on CUDA)
-        hist = torch.stack([(blocks == c).sum(1) for c in range(6)], 0)
-        occ = torch.zeros((nb + 1, 8), dtype=torch.int64, device=dev)
-        occ[1:, :6] = torch.cumsum(hist[:, :-1], 1).T
-        del hist
-        # the final row is all pad, so occ[nb] holds the full totals
-        totals = occ[nb, :6].cpu().numpy()
+        blocks = torch.empty(((n + BLOCK - 1) // BLOCK + 1, BLOCK),
+                             dtype=torch.uint8, device=bwt.device)
+        flat = blocks.view(-1)
+        flat[:n] = bwt
+        flat[n:] = 6
+        return FMDIndex._from_blocks(blocks, n)
+
+    @staticmethod
+    def _from_blocks(blocks: torch.Tensor, n: int) -> "FMDIndex":
+        """occ, packed words and fused rows over the padded blocks of an
+        n-symbol BWT (every symbol past n is 6), RESTORE_CHUNK symbols of
+        rows at a time: the memory beyond the index's own arrays is a
+        slice's.  occ carries the running totals across slices."""
+        dev = blocks.device
+        rows = blocks.shape[0]
+        step = _slice_rows()
+        dtype = _pick_idtype(n)
+        occ = torch.zeros((rows, 8), dtype=dtype, device=dev)
+        packed = torch.empty((rows, 16), dtype=torch.int32, device=dev)
+        fused = None
+        if n < FUSED_MAX:
+            fused = torch.empty((rows, 24), dtype=torch.int32, device=dev)
+        run = torch.zeros((6, 1), dtype=torch.int64, device=dev)
+        for r0 in range(0, rows, step):
+            part = blocks[r0: r0 + step]
+            # [6, rows]: each symbol's counts contiguous, so the running
+            # sum is a scan along the innermost dimension (a scan along
+            # the outer one runs one sequential thread per column on CUDA).
+            # A row's count fits uint8; a wider sum would first cast the
+            # whole compare to its type.
+            hist = torch.stack([(part == c).view(torch.uint8).sum(
+                1, dtype=torch.uint8) for c in range(6)], 0).long()
+            excl = torch.cumsum(hist, 1) - hist + run
+            run = excl[:, -1:] + hist[:, -1:]
+            occ[r0: r0 + step, :6] = excl.T
+            packed[r0: r0 + step] = _pack_words(part)
+            if fused is not None:
+                fused[r0: r0 + step] = _fuse_rows(packed[r0: r0 + step],
+                                                  excl.T)
+        # the final row is all pad, so the running totals are the counts
         mcnt = np.zeros(8, np.int64)
         mcnt[0] = n
-        mcnt[1:7] = totals
+        mcnt[1:7] = run[:, 0].cpu().numpy()
         cnt = np.zeros(8, np.int64)
         cnt[1:7] = np.cumsum(mcnt[1:7])
         cnt[7] = cnt[6]
-        w = blocks.view(nb + 1, 16, 8).to(torch.int32)
-        packed = w[:, :, 0].clone()
-        for s in range(1, 8):
-            packed |= w[:, :, s] << (4 * s)
-        del w
-        return FMDIndex._assemble(blocks, occ, cnt, mcnt, packed, None, n)
-
-    @staticmethod
-    def _assemble(blocks, occ, cnt, mcnt, packed, fused, n) -> "FMDIndex":
-        dev = blocks.device
-        dtype = _pick_idtype(n)
-        if fused is None and n < FUSED_MAX:
-            fused = _fuse_rows(packed, occ)
-        return FMDIndex(
-            bwt_blocks=blocks,
-            occ=occ.to(dtype),
-            cnt=torch.as_tensor(cnt, device=dev).to(dtype),
-            mcnt=torch.as_tensor(mcnt, device=dev).to(dtype),
-            bwt_packed=packed,
-            fused=fused,
-        )
+        return FMDIndex(bwt_blocks=blocks, occ=occ,
+                        cnt=torch.as_tensor(cnt, device=dev).to(dtype),
+                        mcnt=torch.as_tensor(mcnt, device=dev).to(dtype),
+                        bwt_packed=packed, fused=fused)
 
     @staticmethod
     def from_bwt(bwt: np.ndarray, device=None) -> "FMDIndex":
@@ -147,19 +207,42 @@ class FMDIndex:
 
     @staticmethod
     def from_runs(runs, device=None) -> "FMDIndex":
-        """Device index straight from RLE runs: the runs go to the device
-        and are expanded there (repeat_interleave), then blocked, counted
-        and packed with torch ops.  Its length is the runs' (a damaged
-        file's header may claim another, which chkbwt reports)."""
+        """Device index straight from RLE runs (positive lengths, as the
+        decoder and Runs.from_bwt give), expanded into the padded blocks
+        RESTORE_CHUNK symbols at a time: only a slice's runs go to the
+        device, each run's start gets its symbol's difference from the
+        previous run's, and a uint8 running sum (mod 256) of those writes
+        the slice's symbols.  Its length is the runs' (a damaged file's
+        header may claim another, which chkbwt reports)."""
         dev = resolve_device(device)
-        n = int(np.sum(runs.lengths))
-        sym = torch.from_numpy(np.ascontiguousarray(runs.symbols,
-                                                    dtype=np.uint8)).to(dev)
-        lens = torch.from_numpy(np.ascontiguousarray(runs.lengths,
-                                                     dtype=np.int64)).to(dev)
-        bwt = torch.repeat_interleave(sym, lens, output_size=n)
-        del sym, lens
-        return FMDIndex._from_symbols(bwt)
+        lens = np.ascontiguousarray(runs.lengths, dtype=np.int64)
+        syms = np.ascontiguousarray(runs.symbols, dtype=np.uint8)
+        bounds, cut, skip = _slice_cuts(lens, _slice_rows() * BLOCK)
+        n = int(bounds[-1])
+        blocks = torch.empty(((n + BLOCK - 1) // BLOCK + 1, BLOCK),
+                             dtype=torch.uint8, device=dev)
+        flat = blocks.view(-1)
+        flat[n:] = 6
+        for lo, hi, i, j, head, tail in zip(
+                bounds[:-1], bounds[1:], cut[:-1], cut[1:], skip[:-1],
+                skip[1:]):
+            if tail:                        # run j holds the slice's end
+                j += 1
+            ln = torch.from_numpy(lens[i:j]).to(dev, copy=True)
+            if tail:
+                ln[-1] = tail
+            ln[0] -= head
+            sym = torch.from_numpy(syms[i:j]).to(dev)
+            delta = sym.clone()
+            delta[1:] -= sym[:-1]
+            starts = torch.cumsum(ln, 0)
+            starts -= ln
+            buf = torch.zeros(hi - lo, dtype=torch.uint8, device=dev)
+            buf[starts] = delta
+            del ln, sym, delta, starts
+            torch.cumsum(buf, 0, dtype=torch.uint8, out=flat[lo:hi])
+            del buf
+        return FMDIndex._from_blocks(blocks, n)
 
     @staticmethod
     def from_arrays(bwt_blocks, occ, cnt, mcnt, bwt_packed, fused=None,
@@ -176,10 +259,18 @@ class FMDIndex:
             # a copy: the source arrays may be read-only views
             return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
 
-        return FMDIndex._assemble(
-            t(bwt_blocks, np.uint8), t(occ, np.int64),
-            np.asarray(cnt).astype(np.int64), mcnt, t(bwt_packed, np.int32),
-            None if fused is None else t(fused, np.int32), n)
+        dtype = _pick_idtype(n)
+        occ, packed = t(occ, np.int64), t(bwt_packed, np.int32)
+        if fused is not None:
+            fused = t(fused, np.int32)
+        elif n < FUSED_MAX:
+            fused = _fuse_rows(packed, occ)
+        return FMDIndex(
+            bwt_blocks=t(bwt_blocks, np.uint8), occ=occ.to(dtype),
+            cnt=torch.as_tensor(np.asarray(cnt).astype(np.int64),
+                                device=dev).to(dtype),
+            mcnt=torch.as_tensor(mcnt, device=dev).to(dtype),
+            bwt_packed=packed, fused=fused)
 
     @staticmethod
     def restore(path: str, device=None) -> "FMDIndex":

@@ -98,6 +98,18 @@ def test_blocked_block_sizes(genome_text, blk):
     assert np.array_equal(got, j_blocked(text, block_symbols=blk))
 
 
+def test_blocked_sliced_restore(genome_text, monkeypatch):
+    """Each fold's indexes built a few blocks at a time (RESTORE_CHUNK
+    lowered): the same folds and bytes."""
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    text, want = genome_text
+    monkeypatch.setattr(tfmd, "RESTORE_CHUNK", 256)
+    got = blocked.device_build_text(text, block_symbols=4000, device="cpu")
+    assert blocked.STATS["blocks"] > 2 and text.size > 8 * 256
+    assert np.array_equal(got, want)
+
+
 def test_blocked_read_list(genome_text):
     """device_build_bwt takes the strands as a list; an empty read
     raises."""

@@ -871,3 +871,69 @@ def test_merge_with_self_unfused_card(card, tmp_path, monkeypatch):
     assert rank_cuda.LAUNCHES["rank_block_counts"] > \
         before["rank_block_counts"] + 1
     assert rank_cuda.LAUNCHES["rank6_fused"] == before["rank6_fused"]
+
+
+# A restore slice's temporaries (its bytes, their int64 words, a slice's
+# runs of 16 symbols on average) stay under 4 bytes a slice symbol.
+SLICE_BYTES_PER_SYMBOL = 4
+
+
+def test_sliced_restore_footprint(card, tmp_path):
+    """A synthetic .fmd of more than 2^30 symbols restored on the card a
+    RESTORE_CHUNK at a time: the device peak above what was resident is
+    at most the layout's bytes plus two slices' temporaries; blocks, occ,
+    packed words and fused rows equal a numpy construction from the runs;
+    rank6 at 300 positions equals a count over the host blocks."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    rng = np.random.default_rng(30)
+    m = (1 << 30) // 16 + 12_345
+    lens = rng.integers(1, 32, m).astype(np.int64)
+    syms = (np.cumsum(rng.integers(1, 6, m)) % 6).astype(np.uint8)
+    n = int(lens.sum())
+    assert n >= 1 << 30 and n % 128
+    mcnt = np.zeros(7, np.uint64)
+    mcnt[0] = n
+    mcnt[1:] = np.bincount(syms, weights=lens, minlength=6).astype(np.uint64)
+    path = str(tmp_path / "syn.fmd")
+    rld.write_fmd(rld.Runs(lens, syms, mcnt), path)
+    runs = rld.read_fmd(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    idx = tfmd.FMDIndex.from_runs(runs, card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    arrays = (idx.bwt_blocks, idx.occ, idx.bwt_packed, idx.fused)
+    layout = sum(a.numel() * a.element_size() for a in arrays)
+    assert idx.fused is not None and idx.idtype == torch.int32
+    assert peak <= layout + 2 * tfmd.RESTORE_CHUNK * SLICE_BYTES_PER_SYMBOL
+
+    rows = -(-n // 128) + 1
+    flat = np.full(rows * 128, 6, np.uint8)
+    flat[:n] = np.repeat(syms, lens)
+    blocks = flat.reshape(rows, 128)
+    assert np.array_equal(idx.bwt_blocks.cpu().numpy(), blocks)
+    occ = np.zeros((rows, 8), np.int64)
+    for c in range(6):
+        np.cumsum((blocks[:-1] == c).sum(1), out=occ[1:, c])
+    assert np.array_equal(idx.occ.cpu().numpy(), occ)
+    assert idx.mcnt.cpu().tolist() == [n, *occ[-1, :6].tolist(), 0]
+    step = 1 << 20
+    for a in range(0, rows, step):
+        w = blocks[a: a + step].reshape(-1, 16, 8).astype(np.uint32)
+        words = np.zeros(w.shape[:2], np.uint32)
+        for s in range(8):
+            words |= w[:, :, s] << (4 * s)
+        got = idx.fused[a: a + step].cpu().numpy()
+        assert np.array_equal(idx.bwt_packed[a: a + step].cpu().numpy(),
+                              words.view(np.int32))
+        assert np.array_equal(got[:, :16], words.view(np.int32))
+        assert np.array_equal(got[:, 16:22], occ[a: a + step, :6])
+    ks = np.sort(rng.integers(0, n + 1, 300))
+    want = occ[ks >> 7, :6] + np.stack(
+        [(blocks[k >> 7, : k & 127][None] == np.arange(6)[:, None]).sum(1)
+         for k in ks])
+    assert np.array_equal(idx.rank6(torch.from_numpy(ks).to(card)).cpu()
+                          .numpy(), want)

@@ -112,6 +112,64 @@ def test_index_arrays_match(pair, build):
     assert tidx.idtype == torch.int32 and tidx.total == bwt.size
 
 
+def _sliced_bwt():
+    """Random stretches, runs several restore slices long and a final
+    partial block (2,561 symbols), so slice bounds fall inside runs."""
+    rng = np.random.default_rng(13)
+    parts = [rng.integers(0, 6, 150), np.full(1100, 3),
+             rng.integers(0, 6, 333), np.full(77, 4), rng.integers(1, 5, 600),
+             np.full(260, 5), rng.integers(0, 6, 41)]
+    return np.concatenate(parts).astype(np.uint8)
+
+
+@pytest.mark.parametrize("build", ["from_runs", "from_bwt"])
+@pytest.mark.parametrize("domain", ["int32", "int64", "unfused"])
+@pytest.mark.parametrize("chunk", [128, 384, 200])
+def test_sliced_restore_matches(monkeypatch, chunk, domain, build):
+    """The restore a slice at a time (RESTORE_CHUNK lowered; 200 rounds up
+    to two blocks) gives fermi_tpu's arrays bit for bit in the int32
+    domain, the forced int64 domain (where the port keeps fused rows,
+    held to fermi_tpu's _fuse_rows of its own occ and words) and without
+    fused rows (FUSED_MAX lowered, int64: the layout past 2^32 - 128)."""
+    bwt = _sliced_bwt()
+    n = bwt.size
+    step = -(-chunk // 128) * 128
+    assert n % 128 and any(bwt[b - 1] == bwt[b] for b in range(step, n, step))
+    monkeypatch.setattr(tfmd, "RESTORE_CHUNK", chunk)
+    if domain != "int32":
+        monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    if domain == "unfused":
+        monkeypatch.setattr(tfmd, "FUSED_MAX", 0)
+    packs = []
+    orig = tfmd._pack_words
+
+    def spy(part):
+        packs.append(part.shape[0])
+        return orig(part)
+    monkeypatch.setattr(tfmd, "_pack_words", spy)
+    if build == "from_runs":
+        runs = trld.Runs.from_bwt(bwt)
+        lengths = runs.lengths.copy()
+        tidx = tfmd.FMDIndex.from_runs(runs, device="cpu")
+        assert np.array_equal(runs.lengths, lengths)
+        jidx = jfmd.FMDIndex.from_runs(jrld.Runs.from_bwt(bwt))
+    else:
+        tidx = tfmd.FMDIndex.from_bwt(bwt, device="cpu")
+        jidx = jfmd.FMDIndex.from_bwt(bwt)
+    rows, r = -(-n // 128) + 1, step // 128
+    assert packs == [min(r, rows - i) for i in range(0, rows, r)]
+    for f in FIELDS[:-1]:
+        _eq(getattr(jidx, f), getattr(tidx, f).numpy())
+    assert tidx.idtype == (torch.int32 if domain == "int32" else torch.int64)
+    assert tidx.total == n and tidx.n_seqs == int((bwt == 0).sum())
+    if domain == "unfused":
+        assert tidx.fused is None and jidx.fused is None
+    else:
+        want = jidx.fused if domain == "int32" else jfmd._fuse_rows(
+            np.asarray(jidx.bwt_packed), np.asarray(jidx.occ))
+        _eq(want, tidx.fused.numpy())
+
+
 def test_full_sweep(pair):
     """rank6, rank6_dense, sym_at and lf at every k in [0, n], plus the
     brute-force counts (the `fermi chkbwt -r` property)."""

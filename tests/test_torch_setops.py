@@ -219,14 +219,14 @@ def test_cli_merge_and_recode(pair, capfdbinary):
         _out(capfdbinary, jmain, ["recode", b]) == open(b, "rb").read()
 
 
-def _doubled_sizes(exact_text):
+def _scaled_sizes(exact_text, factor=2):
     """`exact`'s records with every SMEM's size (the EM line's fourth
-    field) doubled."""
+    field) times `factor`."""
     out = []
     for ln in exact_text.splitlines(True):
         if ln.startswith("EM\t"):
             f = ln.split("\t")
-            f[3] = str(2 * int(f[3]))
+            f[3] = str(factor * int(f[3]))
             ln = "\t".join(f)
         out.append(ln)
     return "".join(out)
@@ -275,7 +275,7 @@ def test_cli_merge_with_self(pair, tmp_path, monkeypatch, capsys, domain):
     for f in (x, tout):
         assert tmain(["exact", "--device", "cpu", f, qfa]) == 0
         text[f] = capsys.readouterr().out
-    assert text[tout] == _doubled_sizes(text[x])
+    assert text[tout] == _scaled_sizes(text[x])
     assert text[x].count("EM\t") > len(qry)
 
     one, two = (FMDIndex.restore(f, "cpu") for f in (x, tout))
@@ -288,6 +288,39 @@ def test_cli_merge_with_self(pair, tmp_path, monkeypatch, capsys, domain):
         got, _ = se.retrieve_strings(two, ids + lo)
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
     assert [dna.decode(want[2 * i]) for i in range(3)] == pair["r0"][:3]
+
+
+@pytest.mark.parametrize("domain", ["int32", "int64"])
+def test_cli_merge_of_merged_with_self(pair, tmp_path, monkeypatch, capsys,
+                                       domain):
+    """`merge y y` of y = `merge x x`, the smoke test's 9.05 Gsym shape,
+    with every restore a few blocks at a time (RESTORE_CHUNK lowered):
+    fermi_tpu's bytes, and `exact` prints x's records with every size
+    times 4.  In int64 no index has fused rows (FUSED_MAX lowered)."""
+    x = pair["paths"][0]
+    y, jout, tout = (str(tmp_path / f) for f in ("y.fmd", "j.fmd", "t.fmd"))
+    assert jmain(["merge", "-fo", y, x, x]) == 0
+    assert jmain(["merge", "-fo", jout, y, y]) == 0
+    monkeypatch.setattr(tfmd, "RESTORE_CHUNK", 384)
+    if domain == "int64":
+        monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+        monkeypatch.setattr(tfmd, "FUSED_MAX", 0)
+    assert tmain(["merge", "--device", "cpu", "-fo", tout, y, y]) == 0
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+    four = FMDIndex.restore(tout, "cpu")
+    assert four.total > 8 * tfmd.RESTORE_CHUNK
+    assert four.idtype == getattr(torch, domain)
+    assert (four.fused is None) == (domain == "int64")
+
+    qfa = str(tmp_path / "q.fa")
+    write_fasta(qfa, pair["r0"][::4])
+    capsys.readouterr()
+    text = {}
+    for f in (x, tout):
+        assert tmain(["exact", "--device", "cpu", f, qfa]) == 0
+        text[f] = capsys.readouterr().out
+    assert text[tout] == _scaled_sizes(text[x], 4)
+    assert text[x].count("EM\t") >= len(pair["r0"][::4])
 
 
 @pytest.mark.parametrize("chunk", [1, 7, 1 << 28])
