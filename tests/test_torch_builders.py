@@ -110,6 +110,40 @@ def test_blocked_sliced_restore(genome_text, monkeypatch):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("share", [0.3, 0.75])
+def test_blocked_past_fused_max(genome_text, monkeypatch, share):
+    """A build that crosses FUSED_MAX part way (lowered to `share` of the
+    text; the accumulated index int64 past one block, each block int32):
+    the folds before it walk an accumulated index with fused rows, those
+    after it one without, beside each block's fused rows, as a read set
+    past 2^32 - 128 symbols builds; fermi_tpu's bytes and the host SA
+    rule's."""
+    from fermi_tpu_torch.algos import merge as tmerge
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    text, want = genome_text
+    blk = 700
+    monkeypatch.setattr(tfmd, "_pick_idtype", lambda n: torch.int64
+                        if n > blk else torch.int32)
+    monkeypatch.setattr(tfmd, "FUSED_MAX", int(text.size * share))
+    seen = []
+    orig = tmerge.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        seen.append((e0.total, e0.fused is not None, e1.fused is not None,
+                     e1.idtype))
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(tmerge, "compute_gap_bits", spy)
+    got = blocked.device_build_text(text, block_symbols=blk, device="cpu")
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, j_blocked(text, block_symbols=blk))
+    assert len(seen) == blocked.STATS["blocks"] - 1
+    fused = [f for _, f, _, _ in seen]
+    assert True in fused and False in fused
+    assert fused == [t < tfmd.FUSED_MAX for t, _, _, _ in seen]
+    assert all(f1 and dt == torch.int32 for _, _, f1, dt in seen)
+
+
 def test_blocked_read_list(genome_text):
     """device_build_bwt takes the strands as a list; an empty read
     raises."""

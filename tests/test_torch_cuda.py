@@ -873,6 +873,38 @@ def test_merge_with_self_unfused_card(card, tmp_path, monkeypatch):
     assert rank_cuda.LAUNCHES["rank6_fused"] == before["rank6_fused"]
 
 
+def test_blocked_past_fused_max_card(card, monkeypatch):
+    """The blocked builder on the card with FUSED_MAX lowered below the
+    text, so its last folds walk an accumulated index without fused rows
+    (rank_block_counts) beside each block's fused int32 rows
+    (rank6_fused), the shape of a build past 2^32 - 128 symbols: the
+    CPU's bytes and prefix doubling's, both K1 entries launched."""
+    from fermi_tpu_torch.construct import blocked, suffix, suffix_device
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    reads = random_reads(300, seed=61, with_genome=True, genome_len=3000)
+    text = suffix.build_text([dna.encode(r) for r in reads])
+    blk = text.size // 8
+    monkeypatch.setattr(tfmd, "_pick_idtype", lambda n: torch.int64
+                        if n > blk else torch.int32)
+    monkeypatch.setattr(tfmd, "FUSED_MAX", text.size * 3 // 4)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        before = dict(rank_cuda.LAUNCHES)
+        got[dev] = blocked.device_build_text(text, block_symbols=blk,
+                                             device=dev)
+        assert blocked.STATS["blocks"] >= 8
+        after = rank_cuda.LAUNCHES
+        if dev == "cuda":
+            assert after["rank_block_counts"] > before["rank_block_counts"]
+            assert after["rank6_fused"] > before["rank6_fused"]
+        else:
+            assert after == before
+    assert np.array_equal(got["cuda"], got["cpu"])
+    assert np.array_equal(got["cpu"], suffix_device.multistring_bwt_device(
+        text, "cpu"))
+
+
 # A restore slice's temporaries (its bytes, their int64 words, a slice's
 # runs of 16 symbols on average) stay under 4 bytes a slice symbol.
 SLICE_BYTES_PER_SYMBOL = 4

@@ -347,6 +347,115 @@ def test_cli_build_append(pair):
         open(pair["paths"][2], "rb").read()
 
 
+def _unfused_int64(monkeypatch, fused_max):
+    """Every index the port builds or restores from here on is int64, with
+    fused rows only below fused_max symbols."""
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    monkeypatch.setattr(tfmd, "FUSED_MAX", fused_max)
+
+
+@pytest.mark.parametrize("fused_max", ["none", "between"])
+def test_cli_merge_two_indexes_unfused(pair, tmp_path, monkeypatch,
+                                       fused_max):
+    """`merge a b b a` of two different indexes in the int64 domain with
+    no fused rows (FUSED_MAX 0), or with FUSED_MAX between a's symbols and
+    a + b's, so the running index loses its fused rows after the first
+    fold: fermi_tpu's bytes (its merge in its own default domain)."""
+    a, b, _ = pair["paths"]
+    jout, tout = str(tmp_path / "j.fmd"), str(tmp_path / "t.fmd")
+    assert jmain(["merge", "-fo", jout, a, b, b, a]) == 0
+    n0, n1 = pair["b0"].size, pair["b1"].size
+    _unfused_int64(monkeypatch, 0 if fused_max == "none" else n0 + n1 // 2)
+    seen = []
+    orig = TM.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        seen.append((e0.idtype, e0.fused is not None, e1.fused is not None))
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(TM, "compute_gap_bits", spy)
+    assert tmain(["merge", "--device", "cpu", "-fo", tout, a, b, b, a]) == 0
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+    if fused_max == "none":
+        assert seen == [(torch.int64, False, False)] * 3
+    else:
+        assert seen == [(torch.int64, True, True),
+                        (torch.int64, False, True),
+                        (torch.int64, False, True)]
+
+
+def test_cli_build_append_unfused(pair, tmp_path, monkeypatch):
+    """`build -i` of b's reads onto a in the int64 domain with no fused
+    rows: fermi_tpu's `build -i` bytes and `build` of all the reads."""
+    fa = str(tmp_path / "r1.fa")
+    write_fasta(fa, pair["r1"])
+    jout, tout = str(tmp_path / "ja.fmd"), str(tmp_path / "ta.fmd")
+    assert jmain(["build", "-fo", jout, "-i", pair["paths"][0], fa]) == 0
+    _unfused_int64(monkeypatch, 0)
+    seen = []
+    orig = TM.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        seen.append((e0.idtype, e0.fused, e1.fused))
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(TM, "compute_gap_bits", spy)
+    assert tmain(["build", "--device", "cpu", "-fo", tout, "-i",
+                  pair["paths"][0], fa]) == 0
+    assert seen == [(torch.int64, None, None)]
+    assert open(tout, "rb").read() == open(jout, "rb").read() == \
+        open(pair["paths"][2], "rb").read()
+
+
+def test_two_indexes_merged_oracles(pair, tmp_path, monkeypatch):
+    """The smoke test's gates on its index past 2^32, in small: the SA
+    interval of every query by multi_backward_search over a and b (no gap
+    bits on that path) equals backward_search's over `merge a b` restored
+    int64 without fused rows, and fermi_tpu's multi_backward_search's;
+    ids n_a + y of the merged index unpack to b's read y, ids x < n_a to
+    a's read x."""
+    from fermi_tpu.search import extend as jex
+    from fermi_tpu_torch.core import dna
+    from fermi_tpu_torch.search import extend as se
+
+    a, b, _ = pair["paths"]
+    merged = str(tmp_path / "m.fmd")
+    _unfused_int64(monkeypatch, 0)
+    assert tmain(["merge", "--device", "cpu", "-fo", merged, a, b]) == 0
+    ea, eb, m = (FMDIndex.restore(p, "cpu") for p in (a, b, merged))
+    assert m.fused is None and m.idtype == torch.int64
+    rng = np.random.default_rng(55)
+    qs = []
+    for reads in (pair["r0"], pair["r1"]):
+        for r in rng.choice(len(reads), 25):
+            s = dna.encode(reads[r])
+            ln = int(rng.integers(8, len(s) + 1))
+            at = int(rng.integers(0, len(s) - ln + 1))
+            qs.append(s[at: at + ln])
+    qs += [rng.integers(1, 5, int(rng.integers(8, 40))).astype(np.uint8)
+           for _ in range(25)]
+    width = max(len(q) for q in qs)
+    buf = np.zeros((len(qs), width), np.uint8)
+    for i, q in enumerate(qs):
+        buf[i, :len(q)] = q
+    k, l, c = se.backward_search(m, torch.from_numpy(buf),
+                                 torch.tensor([len(q) for q in qs]), width)
+    got = [(x, y, n) if n else (0, -1, 0)
+           for x, y, n in zip(k.tolist(), l.tolist(), c.tolist())]
+    ja, jb = JIndex.from_bwt(pair["b0"]), JIndex.from_bwt(pair["b1"])
+    for q, g in zip(qs, got):
+        assert se.multi_backward_search([ea, eb], q) == g
+        assert tuple(map(int, jex.multi_backward_search([ja, jb], q))) == g
+    assert sum(n > 0 for _, _, n in got) >= 50
+
+    want_a, _ = se.retrieve_strings(ea, np.arange(ea.n_seqs))
+    want_b, _ = se.retrieve_strings(eb, np.arange(eb.n_seqs))
+    ids = np.arange(m.n_seqs)
+    seqs, _ = se.retrieve_strings(m, ids)
+    assert m.n_seqs == ea.n_seqs + eb.n_seqs
+    assert all(np.array_equal(s, w) for s, w in zip(seqs, want_a + want_b))
+    assert [dna.decode(seqs[ea.n_seqs + 2 * y]) for y in range(5)] == \
+        pair["r1"][:5]
+
+
 @pytest.mark.parametrize("comp", [[], ["-c"]])
 def test_cli_sub(subset, capfdbinary, comp):
     argv = ["sub", *comp, subset["paths"]["all"], subset["bitfile"]]

@@ -44,6 +44,8 @@ load_fermi_tpu_native()
 
 MAX_TEXT = 2000                 # prefix doubling's limit, patched
 BLOCK = 1500                    # the blocked builder's block, patched
+# the builder as imported: the module fixture below keeps its patch on
+_DEVICE_BUILD_TEXT = blocked.device_build_text
 
 
 def _small_blocks(mp):
@@ -51,7 +53,7 @@ def _small_blocks(mp):
     texts the blocked builder is handed."""
     mp.setattr(suffix_device, "MAX_TEXT", MAX_TEXT)
     calls = []
-    orig = blocked.device_build_text
+    orig = _DEVICE_BUILD_TEXT
 
     def small(text, device=None):
         calls.append(text.size)
@@ -171,6 +173,59 @@ def test_wide_raw_fmd_equals_fermi_tpu(chain):
     idx = chain["tidx"]
     assert idx.idtype == torch.int64 and idx.fused is not None
     assert idx.total == 2 * len(chain["recs"]) * 71
+
+
+def test_raw_fmd_of_two_files_past_fused_max(tmp_path, monkeypatch):
+    """The smoke test's index past 2^32 in small: two FASTQ files of one
+    genome (a library's two lanes), FUSED_MAX lowered between one file's
+    symbols and both files', the index int64, the build blocked.  The
+    driver's raw_fmd of both files (its last folds walk an accumulated
+    index without fused rows), the CLI's `merge` of each file's own
+    raw_fmd and fermi_tpu's raw_fmd of both files: the same bytes."""
+    from fermi_tpu_torch.algos import merge as tmerge
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    src = open(make_pe_fastq(tmp_path, seed=9, glen=2500, n_pairs=240)
+               ).read().splitlines(True)
+    fqs = [str(tmp_path / f) for f in ("a.fq", "b.fq")]
+    for path, part in zip(fqs, (src[:960], src[960:])):
+        with open(path, "w") as f:
+            f.writelines(part)
+    jp = JPipeline(str(tmp_path / "j"), n_threads=2, paired=True)
+    jp.stage_raw_fmd(fqs)
+    want = open(jp._p("raw.fmd"), "rb").read()
+
+    _small_blocks(monkeypatch)
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    one = 2 * 240 * 71
+    monkeypatch.setattr(tfmd, "FUSED_MAX", one * 3 // 2)
+    seen = []
+    orig = tmerge.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        seen.append(e0.fused is not None)
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(tmerge, "compute_gap_bits", spy)
+
+    def raw_fmd(prefix, paths):
+        tp = TPipeline(str(tmp_path / prefix), n_threads=2, paired=True,
+                       device="cpu")
+        with contextlib.redirect_stderr(io.StringIO()):
+            tp.stage_raw_fmd(paths)
+        return tp._p("raw.fmd")
+    both = raw_fmd("ab", fqs)
+    assert blocked.STATS["blocks"] == len(seen) + 1 > 40
+    assert True in seen and False in seen
+    parts = [raw_fmd(p, [f]) for p, f in zip("ab", fqs)]
+    assert all(FMDIndex.restore(p, "cpu").total == one for p in parts)
+    merged = str(tmp_path / "m.fmd")
+    seen.clear()
+    _out(tcli.main, ["merge", "--device", "cpu", "-fo", merged, *parts])
+    assert seen == [True]
+    got = open(both, "rb").read()
+    assert got == open(merged, "rb").read() == want
+    idx = FMDIndex.restore(both, "cpu")
+    assert idx.total == 2 * one and idx.fused is None
 
 
 def test_wide_chkbwt(chain, monkeypatch):
