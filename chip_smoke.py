@@ -92,7 +92,7 @@ D/UW-3/CX), 30x of 100 bp reads:
 - `-M`, out of core on the host, over the files above, each call held to
   launch no kernel and allocate nothing on the card: the .fmd.blk record
   cache of the 63 Msym index (seconds, size); `exact -M` of the first
-  4,096 queries equal to the card's `exact` of them, with reads/s and each
+  2,048 queries equal to the card's `exact` of them, with reads/s and each
   call's peak RSS in a child process; `unpack -M` of the 1,000 ids;
   `seqsort -M -t 8` of the corrected index equal to its .rank; `correct -M
   -t 8` of the fix rerun's reads equal to the card's; `unitig -M -t 1 -l
@@ -138,6 +138,17 @@ D/UW-3/CX), 30x of 100 bp reads:
   either block against its reads; seconds by part of both builds, the
   fold where the accumulator went unfused, device peaks by part, host
   peak, disk, K1's launches of each entry by part;
+- `build -i` past 2^32 symbols, inside it: 200,000 more pairs of the
+  same genome as a third FASTQ block C (a top-up lane), appended to the
+  4.52 Gsym index by the CLI's card route (the old index restored on the
+  card, the gap walk on `rank_block_counts` beside `rank6_fused` on C's
+  block) and by fermi_tpu's streaming route (`fm_append_streaming` over
+  the .fmd.blk, no K1): both byte-equal (4,605,600,000 symbols); the SA
+  intervals of 320 queries over the merged index and C's at once equal
+  to the appended index's; `unpack` of C's ids and a few of A's and B's;
+  the route `build -i` takes for a 9.05 Gsym and a 2^35-symbol index on
+  the card's free memory; seconds by part of each route, the card
+  route's device peak, host peak, disk;
 - an index past 2^33 symbols on one card, after it: `merge` of that
   4.52 Gsym index with itself on the card (9,049,600,000 symbols, the gap
   walk on `rank_block_counts`), restored a slice at a time (its device
@@ -168,7 +179,6 @@ non-zero; so does a machine without CUDA.
 import argparse
 import contextlib
 import ctypes
-import filecmp
 import io
 import json
 import os
@@ -2485,12 +2495,13 @@ def ropebwt_phase(workdir, win_fq, dev):
 
 
 # slice 9: `-M`, out of core on the host
-N_OOC_QUERIES = 4096            # `exact` queries searched with and without -M
+N_OOC_QUERIES = 2048            # `exact` queries searched with and without -M
 OOC_THREADS = 8                 # -t of ensure_blk, seqsort, correct, unitig
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The child samples its own resident set (/proc/self/statm) every 5 ms:
 # ru_maxrss would carry the parent's peak over the fork and exec, and not
-# every /proc has VmHWM.  The baseline child only imports the CLI.
+# every /proc has VmHWM.  Its resident set once the CLI is imported is the
+# baseline, reported beside the peak.
 RSS_CHILD = """
 import os, sys, threading, time
 from fermi_tpu_torch.cli.main import main
@@ -2506,22 +2517,21 @@ def sample():
         time.sleep(0.005)
 threading.Thread(target=sample, daemon=True).start()
 time.sleep(0.02)
-rc = 0
-if sys.argv[1] != "-":
-    with open(sys.argv[1], "w") as out:
-        sys.stdout = out
-        rc = main(sys.argv[2:])
-        out.flush()
+imported = peak[0]
+with open(sys.argv[1], "w") as out:
+    sys.stdout = out
+    rc = main(sys.argv[2:])
+    out.flush()
 time.sleep(0.02)
-sys.stderr.write("peak_rss_kib %d\\n" % (peak[0] >> 10))
+sys.stderr.write("peak_rss_kib %d %d\\n" % (imported >> 10, peak[0] >> 10))
 sys.exit(rc)
 """
 
 
 def child_maxrss(argv, out_path):
-    """One CLI call (none with out_path "-") in a child process of its
-    own: (seconds, its peak resident set in KiB or a negative number when
-    /proc cannot tell, its stdout)."""
+    """One CLI call in a child process of its own: (seconds, its resident
+    set once the CLI was imported and its peak, in KiB or a negative
+    number when /proc cannot tell, its stdout)."""
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-c", RSS_CHILD, out_path, *argv],
                        capture_output=True, text=True, cwd=ROOT,
@@ -2530,11 +2540,10 @@ def child_maxrss(argv, out_path):
     if p.returncode != 0:
         raise RuntimeError(f"child {' '.join(argv)} exited {p.returncode}: "
                            f"{p.stderr[-500:]}")
-    rss = int(re.search(r"peak_rss_kib (-?\d+)", p.stderr).group(1))
-    if out_path == "-":
-        return t, rss, None
+    imported, peak = map(int, re.search(r"peak_rss_kib (-?\d+) (-?\d+)",
+                                        p.stderr).groups())
     with open(out_path) as f:
-        return t, rss, f.read()
+        return t, imported, peak, f.read()
 
 
 def host_only(name, fn):
@@ -2602,11 +2611,12 @@ def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
     (secs["exact_M"], text, _), _ = host_only(
         "exact -M", lambda: run_cli(["exact", "-M", fmd, q_fa]))
     eq["exact"] = text == card and text.count("SQ\t") == N_OOC_QUERIES
-    rss = {"import": child_maxrss([], "-")[1]}
+    rss = {}
     for key, argv in (("M", ["exact", "-M", fmd, q_fa]),
                       ("card", ["exact", "--device", str(dev), fmd, q_fa])):
-        secs[f"exact_{key}_child"], rss[key], child_text = child_maxrss(
-            argv, os.path.join(workdir, f"exact_{key}.txt"))
+        secs[f"exact_{key}_child"], imported, rss[key], child_text = \
+            child_maxrss(argv, os.path.join(workdir, f"exact_{key}.txt"))
+        rss.setdefault("import", imported)     # the -M child's baseline
         eq[f"exact_{key}_child"] = child_text == card
     out.update(exact_reads_per_s_card=N_OOC_QUERIES / secs["exact_card"],
                exact_reads_per_s_M=N_OOC_QUERIES / secs["exact_M"],
@@ -2899,7 +2909,11 @@ def wide_reads(rng, path, n_pairs, genome, first_id=0):
     insert of 300 +- 30 (clipped to [110, 420]), the second mate
     reverse-complemented, 0.5% substitutions, as plain 4-line FASTQ with
     both mates of pair i named @p<first_id + i> (nine digits).  Returns the
-    reads as nt4 codes [2 * n_pairs, READ_LEN], in file order."""
+    reads as nt4 codes [2 * n_pairs, READ_LEN], in file order.  Each chunk
+    of WIDE_CHUNK pairs is drawn in order on this thread and laid out on
+    a pool of 8, so the bytes do not depend on the threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
     rl = READ_LEN
     top = WIDE_INSERT + 4 * WIDE_INSERT_SD
     glen = genome.size - top
@@ -2909,33 +2923,44 @@ def wide_reads(rng, path, n_pairs, genome, first_id=0):
     base = np.zeros(256, np.uint8)         # a full table: a faster gather
     base[:4] = ASCII
     tens = 10 ** np.arange(8, -1, -1, dtype=np.int32)
-    with open(path, "wb") as f:
+
+    def lay_out(lo, m, ins, pos, rows, at, shift):
+        r = reads[2 * lo: 2 * (lo + m)]
+        r[0::2] = windows[pos]
+        r[1::2] = 3 - windows[pos + ins - rl][:, ::-1]
+        r[rows, at] = (r[rows, at] + shift) % 4
+        rec = np.empty((2 * m, width), np.uint8)
+        rec[:, :2] = np.frombuffer(b"@p", np.uint8)
+        ids = np.arange(lo, lo + m, dtype=np.int32) + first_id
+        digits = (48 + ids[:, None] // tens % 10).astype(np.uint8)
+        rec[0::2, 2:11] = digits
+        rec[1::2, 2:11] = digits
+        rec[:, 11] = 10
+        rec[:, 12: 12 + rl] = base[r]
+        rec[:, 12 + rl: 15 + rl] = np.frombuffer(b"\n+\n", np.uint8)
+        qual = rec[:, 15 + rl: 15 + 2 * rl]
+        qual[:] = 38 + 33
+        qual[rows, at] = 15 + 33
+        rec[:, -1] = 10
+        return rec
+
+    pending = []
+    with open(path, "wb") as f, ThreadPoolExecutor(8) as ex:
         for lo in range(0, n_pairs, WIDE_CHUNK):
             m = min(WIDE_CHUNK, n_pairs - lo)
             ins = np.clip(rng.normal(WIDE_INSERT, WIDE_INSERT_SD, m)
                           .astype(np.int64), rl + 10, top)
             pos = rng.integers(0, glen, m)
-            r = reads[2 * lo: 2 * (lo + m)]
-            r[0::2] = windows[pos]
-            r[1::2] = 3 - windows[pos + ins - rl][:, ::-1]
             nerr = rng.binomial(rl, WIDE_ERR, 2 * m)
             rows = np.repeat(np.arange(2 * m), nerr)
             at = rng.integers(0, rl, rows.size)
-            r[rows, at] = (r[rows, at] + rng.integers(1, 4, rows.size)) % 4
-            rec = np.empty((2 * m, width), np.uint8)
-            rec[:, :2] = np.frombuffer(b"@p", np.uint8)
-            ids = np.arange(lo, lo + m, dtype=np.int32) + first_id
-            digits = (48 + ids[:, None] // tens % 10).astype(np.uint8)
-            rec[0::2, 2:11] = digits
-            rec[1::2, 2:11] = digits
-            rec[:, 11] = 10
-            rec[:, 12: 12 + rl] = base[r]
-            rec[:, 12 + rl: 15 + rl] = np.frombuffer(b"\n+\n", np.uint8)
-            qual = rec[:, 15 + rl: 15 + 2 * rl]
-            qual[:] = 38 + 33
-            qual[rows, at] = 15 + 33
-            rec[:, -1] = 10
-            rec.tofile(f)
+            shift = rng.integers(1, 4, rows.size)
+            pending.append(ex.submit(lay_out, lo, m, ins, pos, rows, at,
+                                     shift))
+            if len(pending) == 8:
+                pending.pop(0).result().tofile(f)
+        for job in pending:
+            job.result().tofile(f)
     return reads
 
 
@@ -3271,11 +3296,12 @@ HUGE_ORACLE = 64                # interval-oracle queries of each kind
 
 
 def oracle_queries(rng, read_sets, genome, n=HUGE_ORACLE):
-    """nt6 queries of 31-63 bp: n cut from the reads of each set, n from
+    """nt6 queries of 31-63 bp: n cut from the reads of each set (kinds
+    a, b, c in order), n from
     the genome (nt4) and n random ones, most of them absent.  Returns the
     queries and the kind of each."""
     qs, kinds = [], []
-    for name, reads in zip("ab", read_sets):
+    for name, reads in zip("abc", read_sets):
         for r in rng.integers(0, len(reads), n):
             m = int(rng.integers(31, 64))
             at = int(rng.integers(0, READ_LEN - m + 1))
@@ -3330,8 +3356,10 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
     HUGE_QUERIES queries of q_fa on the card byte-equal to the native
     engine and to `exact -M` over the new .fmd.blk (256 B records, deleted
     after); (d) `unpack` of N_UNPACK ids of A's range and of B's, each A's
-    or B's read behind it.  Returns K1's launches on the path by entry
-    (the oracle's are printed, not counted), the card's `exact` records,
+    or B's read behind it.  Then, with the merged index still resident and
+    the .fmd.blk still on disk, append_phase.  Returns K1's launches on
+    the path by entry (the oracles' are printed, not counted; the
+    append's included), the card's `exact` records,
     the merged index's (total, n_seqs) and B's reads."""
     from fermi_tpu_torch.algos import merge as mg
     from fermi_tpu_torch.cli.main import write_exact
@@ -3411,7 +3439,7 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
     os.remove(fq_b)
     # (a) the two indexes of the read set
     t0 = time.perf_counter()
-    same = filecmp.cmp(fmd_ab, big, shallow=False)
+    same = same_bytes(fmd_ab, big)
     secs["compare"] = time.perf_counter() - t0
     if not same:
         raise AssertionError("huge: raw_fmd of A and B != merge A B")
@@ -3503,10 +3531,9 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
         raise AssertionError(f"huge: the merged index's launches: "
                              f"{k1['merged_index']}")
     shape = (idx.total, idx.n_seqs)
-    del idx
-    torch.cuda.empty_cache()
 
-    # exact -M over the 256 B-record cache, on the host
+    # exact -M over the 256 B-record cache, on the host (the merged index
+    # stays resident for the append's oracle)
     blk, secs["ensure_blk"] = host_only(
         "ensure_blk", lambda: ensure_blk(big, n_threads=OOC_THREADS))
     out.update(blk_rows=blk.n_rows, blk_gb=os.path.getsize(blk.path) / 1e9,
@@ -3521,6 +3548,10 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
         "exact -M", lambda: run_cli(["exact", "-M", big, hq_fa]))
     if text != card.getvalue():
         raise AssertionError("huge exact: card != exact -M")
+    k1["append_card"], k1["appended_index"] = append_phase(
+        rng, wd, dev, big, idx, (reads_a, reads_b), genome)
+    del idx
+    torch.cuda.empty_cache()
     os.remove(blk.path)
     out.update(exact_reads_per_s_M=len(seqs) / secs["exact_M"],
                host_peak_gib=host_peak_gib())
@@ -3529,10 +3560,196 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
     log("huge", seconds=secs, parts=parts,
         device_peak_gb={k: v / 1e9 for k, v in peak.items()},
         k1_launches=k1, **out, phase_seconds=time.perf_counter() - t_phase)
-    path = ("build_b", "merge", "build_ab", "merged_index")
+    path = ("build_b", "merge", "build_ab", "merged_index", "append_card",
+            "appended_index")
     return ({k: sum(k1[p][k] for p in path)
              for k in ("rank6_fused", "rank_block_counts")},
             card.getvalue(), shape, reads_b)
+
+
+@contextlib.contextmanager
+def spied(module, name):
+    """While open, the positional arguments of every call of module.name
+    are kept, in order, in the list it yields (what a CLI call built, so a
+    check can take it without building it again)."""
+    orig, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+APPEND_PAIRS = 200_000          # block C, a top-up lane of [wide]'s library
+APPEND_BELOW = 16               # of [append]'s unpack ids, A's and B's
+
+
+def append_phase(rng, wd, dev, big, idx, read_sets, genome):
+    """`build -i` past 2^32 symbols by both of its routes.  `big` is
+    [huge]'s merged index of the read sets A and B (`idx`: it restored on
+    `dev`, unfused int64; its .fmd.blk beside it).  Block C is
+    APPEND_PAIRS more pairs of the same genome (same insert and errors,
+    @p names after B's), drawn after every draw of [wide] and [huge], as
+    FASTQ.  The CLI's `build -i` of C onto `big` on `dev` (its route line
+    must name the card: the old index restored there, the gap walk's
+    rank_block_counts on it beside rank6_fused on C's block), and
+    `fm_append_streaming` of the CLI's text (what `build -i` takes when
+    the card route does not fit: ranks off the .fmd.blk on OOC_THREADS
+    host threads, the runs streamed into the encoder; C sorted on the
+    card).  Gates: (a) the two outputs byte-equal; (b) the header's
+    symbols and sequences are big's plus C's, the card route launched
+    both K1 entries and the streaming route none; (c) the SA intervals
+    of oracle_queries (cut from A's, B's and C's reads, the genome,
+    random) by multi_backward_search over `idx` and C's own index equal
+    backward_search's over the appended index, restored once
+    (restore_checked) from the runs the card route wrote to its file;
+    (d) `unpack` of N_UNPACK of C's ids and
+    APPEND_BELOW of A's and B's, each the read behind it; and the route
+    append_route gives a 9.05 Gsym ([giant]'s) and a 2^35-symbol index
+    on the card's free memory: the card's and the streaming one.  The
+    appended files and C's FASTQ are deleted.  Returns K1's launches by
+    entry of the card route and of the appended index's queries (the
+    oracle over two indexes printed, not counted)."""
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.construct import blocked
+    from fermi_tpu_torch.index.fmd import FMDIndex
+    from fermi_tpu_torch.search import extend as se
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    secs, peak, k1 = {}, {}, {}
+    out = {"host_peak_gib_before": host_peak_gib()}
+    n_old, seqs_old = idx.total, idx.n_seqs
+    n_new = 2 * APPEND_PAIRS * 2 * (READ_LEN + 1)
+    fq_c = os.path.join(wd, "pairs_c.fq")
+    t0 = time.perf_counter()
+    reads_c = wide_reads(rng, fq_c, APPEND_PAIRS, genome,
+                         first_id=sum(len(r) for r in read_sets) // 2)
+    secs["data_c"] = time.perf_counter() - t0
+    sets = (*read_sets, reads_c)
+    oracle, kinds = oracle_queries(rng, sets, genome)
+    ids = np.concatenate([
+        np.sort(rng.choice(seqs_old, APPEND_BELOW, replace=False)),
+        seqs_old + np.sort(rng.choice(2 * len(reads_c), N_UNPACK,
+                                      replace=False))])
+
+    # the card route, through the CLI
+    app = {r: os.path.join(wd, f"app_{r}.fmd") for r in ("card", "stream")}
+    for n in (2 * n_old, 2**35):
+        route, need, free = mg.append_route(n, n_new, dev)
+        out[f"route_{n}"] = dict(route=route, need_gb=need / 1e9,
+                                 free_gb=None if free is None else free / 1e9)
+        if on_card and route != ("card" if n < 2**35 else "stream"):
+            raise AssertionError(f"append route of {n} symbols: "
+                                 f"{out[f'route_{n}']}")
+    reset_launches()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with spied(rld, "write_fmd") as written, \
+            spied(mg, "fm_append_card") as appended:
+        secs["card"], _, err = run_cli(["build", "--device", str(dev),
+                                        "-fo", app["card"], "-i", big,
+                                        fq_c])
+    k1["card"] = launches()
+    out["card_line"] = [ln for ln in err.splitlines()
+                        if ln.startswith("[M::build]")]
+    out["card_parts_s"] = dict(mg.APPEND_STATS["seconds"])
+    out["card_parts_peak_gb"] = {k: (v - base) / 1e9 for k, v in
+                                 mg.APPEND_STATS["device_peak"].items()}
+    peak["card"] = max(mg.APPEND_STATS["device_peak"].values(),
+                       default=base) - base
+    out["card_reckoned_gb"] = mg.card_append_bytes(n_old, n_new) / 1e9
+    if (mg.APPEND_STATS["route"] != "card" or len(out["card_line"]) != 1
+            or "by the card route" not in out["card_line"][0]
+            or len(appended) != 1 or len(written) != 1):
+        raise AssertionError(f"append: the CLI's route: {out['card_line']}, "
+                             f"{len(appended)} appends, {len(written)} "
+                             "indexes written")
+    text, runs = appended[0][1], written[0][0]
+    del appended, written
+
+    # the streaming route, through the library, on the CLI's text
+    reset_launches()
+    _, secs["stream"], _ = timed(dev, lambda: mg.fm_append_streaming(
+        big, text, app["stream"], n_threads=OOC_THREADS, device=dev))
+    k1["stream"] = launches()
+    out["stream_parts_s"] = dict(mg.APPEND_STATS["seconds"])
+    out.update(disk_gb=dir_gb(wd), host_peak_gib_routes=host_peak_gib(),
+               fmd_gb=os.path.getsize(app["card"]) / 1e9)
+
+    # (a) the two routes' bytes
+    t0 = time.perf_counter()
+    same = same_bytes(app["card"], app["stream"])
+    secs["compare"] = time.perf_counter() - t0
+    if not same:
+        raise AssertionError("append: the card route != the streaming route")
+    os.remove(app["stream"])
+    os.remove(fq_c)
+    # (b) the counts and the launches
+    out["symbols"], out["sequences"] = mg.fmd_counts(app["card"])
+    want = (n_old + n_new, seqs_old + 2 * len(reads_c))
+    if (out["symbols"], out["sequences"]) != want or text.size != n_new:
+        raise AssertionError(f"append: {out['symbols']} symbols, "
+                             f"{out['sequences']} sequences != {want}")
+    if on_card and (k1["card"]["rank_block_counts"] < 1
+                    or k1["card"]["rank6_fused"] < 1
+                    or any(k1["stream"].values())):
+        raise AssertionError(f"append: launches {k1}")
+
+    # (c) the interval oracle: the merged index and C's own at once
+    t0 = time.perf_counter()
+    ic = FMDIndex.from_bwt(blocked.device_bwt(text, dev), dev)
+    secs["index_c"] = time.perf_counter() - t0
+    del text
+    reset_launches()
+    t0 = time.perf_counter()
+    multi = [se.multi_backward_search([idx, ic], q) for q in oracle]
+    secs["oracle_multi"] = time.perf_counter() - t0
+    k1["oracle_multi"] = launches()
+    del ic
+    # app_card.fmd restored from the runs the card route wrote to it
+    reset_launches()
+    runs, app_idx, secs["restore"], out["restore"] = restore_checked(
+        "append", dev, app["card"], runs)
+    peak["restore"] = out["restore"]["peak_gb"] * 1e9
+    out["runs"] = len(runs.lengths)
+    del runs
+    os.remove(app["card"])
+    t0 = time.perf_counter()
+    merged = intervals(app_idx, oracle)
+    secs["oracle_appended"] = time.perf_counter() - t0
+    found = {k: sum(m[2] > 0 for m, c in zip(multi, kinds) if c == k)
+             for k in ("a", "b", "c", "genome", "random")}
+    out["oracle"] = dict(queries=len(oracle), found=found)
+    if (merged != multi
+            or found["a"] + found["b"] + found["c"] != 3 * HUGE_ORACLE):
+        bad = sum(x != y for x, y in zip(merged, multi))
+        raise AssertionError(f"append: {bad} intervals of the appended "
+                             f"index != the two summed; found {found}")
+    # (d) unpack: a few of A's and B's ids, then C's after them
+    (got, _), secs["unpack"], _ = timed(
+        dev, lambda: se.retrieve_strings(app_idx, ids))
+    for x, s in zip(ids, got):
+        if not np.array_equal(s, read_in(sets, x)):
+            raise AssertionError(f"append: unpack of id {x}")
+    k1["appended_index"] = launches()
+    if on_card and k1["appended_index"]["rank_block_counts"] < 1:
+        raise AssertionError(f"append: the appended index's launches: "
+                             f"{k1['appended_index']}")
+    del app_idx
+    torch.cuda.empty_cache()
+    out["host_peak_gib"] = host_peak_gib()
+    k1 = {part: {k: v[k] for k in ("rank6_fused", "rank_block_counts")}
+          for part, v in k1.items()}
+    log("append", seconds=secs,
+        device_peak_gb={k: v / 1e9 for k, v in peak.items()},
+        k1_launches=k1, **out, phase_seconds=time.perf_counter() - t_phase)
+    return k1["card"], k1["appended_index"]
 
 
 def giant_phase(rng, wd, dev, big, q_fa, huge_text, huge_shape, unpack):

@@ -13,10 +13,14 @@ Unlike fermi_tpu (whose walk makes e0's position in e1's integer type and
 raises when e0's is wider), the position in e1 stays in e1's index domain
 and the position in e0 in e0's, so a wide index merges with a narrow one.
 
-`fm_append_streaming` appends a text block to an index on disk without
-expanding the old index in RAM (fermi_tpu's host engine over the mmapped
-record cache, native/rld_codec.cpp fappend_*); the CLI's `build -i` gets
-the same bytes from `compute_gap_bits` on the device.
+`build -i` appends a text block to an index on disk by one of two routes
+with the same bytes: `fm_append_card` restores the old index on the device
+and merges there (`compute_gap_bits`, `merge_bwts`); `fm_append_streaming`
+never expands the old index (fermi_tpu's host engine over the mmapped
+record cache, native/rld_codec.cpp fappend_*).  `append_route` chooses
+before anything is allocated on the device: the card route when its
+device peak, reckoned from the old .fmd's header, fits the device's free
+memory, else the streaming route.
 """
 
 import contextlib
@@ -112,6 +116,27 @@ def merge_bwts(bwt0: torch.Tensor, bwt1: torch.Tensor, bits: torch.Tensor,
     return out
 
 
+def _part_timer(device, secs, peak):
+    """A context manager factory: `with part(name):` adds the block's
+    seconds to secs[name] and, on CUDA, keeps in peak[name] the largest
+    device peak (bytes allocated) seen in a block of that name."""
+    on_card = device.type == "cuda"
+
+    @contextlib.contextmanager
+    def part(name):
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        yield
+        if on_card:
+            torch.cuda.synchronize(device)
+            peak[name] = max(peak.get(name, 0),
+                             torch.cuda.max_memory_allocated(device))
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+    return part
+
+
 # Seconds and device peaks (bytes, on CUDA) by part of the last merge_files
 # call, for measurement: the restores, gap walks, interleaves and rebuilds
 # of the running index summed over the folds, the host copy with the RLE,
@@ -127,21 +152,7 @@ def merge_files(paths, out: str, device) -> None:
 
     secs, peak = {}, {}
     FILE_STATS.update(seconds=secs, device_peak=peak)
-    on_card = device.type == "cuda"
-
-    @contextlib.contextmanager
-    def part(name):
-        if on_card:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        yield
-        if on_card:
-            torch.cuda.synchronize(device)
-            peak[name] = max(peak.get(name, 0),
-                             torch.cuda.max_memory_allocated(device))
-        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
-
+    part = _part_timer(device, secs, peak)
     with part("restore"):
         e0 = FMDIndex.restore(paths[0], device)
     bwt = e0.bwt()
@@ -175,6 +186,114 @@ def fm_merge(e0: FMDIndex, bwt0: np.ndarray, e1: FMDIndex, bwt1: np.ndarray,
                       bits).cpu().numpy()
 
 
+# The route of the last `build -i` (fm_append_card or fm_append_streaming)
+# and its seconds and device peaks (bytes, on CUDA) by part, for
+# measurement.
+APPEND_STATS = {"route": None, "seconds": {}, "device_peak": {}}
+
+# Device bytes of the card route beyond the two indexes' layouts: the gap
+# bits and the merged BWT (1 B a merged symbol each), a restore slice's
+# temporaries (2.75 B a RESTORE_CHUNK symbol) and a merge_bwts chunk's
+# inverted mask and index list (9 B a MERGE_CHUNK symbol).
+APPEND_BYTES_PER_MERGED_SYMBOL = 2
+RESTORE_SLICE_BYTES_PER_SYMBOL = 2.75
+MERGE_CHUNK_BYTES_PER_SYMBOL = 9
+
+
+def fmd_counts(path: str) -> tuple[int, int]:
+    """(symbols, sequences) of an RLD\\2 .fmd from its header alone (the
+    encoder's dump, native/rld_codec.cpp: magic, asize << 16 | sbits, two
+    words, the frame count, then each symbol's count), no run decoded."""
+    with open(path, "rb") as f:
+        head = f.read(32)
+        if len(head) < 32 or head[:4] != b"RLD\2":
+            raise ValueError(f"{path}: not an RLD\\2 index")
+        asize = int.from_bytes(head[4:8], "little") >> 16
+        counts = np.fromfile(f, np.uint64, asize)
+    if counts.size != asize or asize < 1:
+        raise ValueError(f"{path}: a truncated RLD\\2 header")
+    return int(counts.sum()), int(counts[0])
+
+
+def index_layout_bytes(n: int) -> int:
+    """Device bytes of an n-symbol FMDIndex's arrays as a restore or
+    from_bwt lays them out: a row of BLOCK symbols, 16 packed words, 8
+    counts in the index's integer type and, below FUSED_MAX, a fused row
+    of 24 words, for each of n / BLOCK + 1 rows (fmd._from_blocks)."""
+    from fermi_tpu_torch.index import fmd
+
+    row = fmd.BLOCK + 16 * 4 + 8 * fmd._pick_idtype(n).itemsize
+    if n < fmd.FUSED_MAX:
+        row += 24 * 4
+    return ((n + fmd.BLOCK - 1) // fmd.BLOCK + 1) * row
+
+
+def card_append_bytes(n_old: int, n_new: int) -> int:
+    """The card route's reckoned device peak for appending n_new symbols
+    to an n_old-symbol index: both indexes' layouts, the gap bits and the
+    merged BWT, and the restore's and the interleave's chunk
+    temporaries."""
+    from fermi_tpu_torch.index import fmd
+
+    return int(index_layout_bytes(n_old) + index_layout_bytes(n_new)
+               + APPEND_BYTES_PER_MERGED_SYMBOL * (n_old + n_new)
+               + RESTORE_SLICE_BYTES_PER_SYMBOL * fmd._slice_rows()
+               * fmd.BLOCK
+               + MERGE_CHUNK_BYTES_PER_SYMBOL * MERGE_CHUNK)
+
+
+def free_bytes(device: torch.device) -> int | None:
+    """The device's free memory (torch.cuda.mem_get_info), None off
+    CUDA."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def append_route(n_old: int, n_new: int,
+                 device) -> tuple[str, int, int | None]:
+    """`build -i`'s route for appending n_new symbols to an n_old-symbol
+    index on `device`: "card" when the card route's reckoned peak fits
+    the free memory (and always off CUDA), else "stream".  Returns the
+    route, the reckoned bytes and the free bytes (None off CUDA).  Pure
+    arithmetic: nothing is allocated on the device."""
+    need = card_append_bytes(n_old, n_new)
+    free = free_bytes(torch.device(device))
+    return ("card" if free is None or need <= free else "stream"), need, free
+
+
+def fm_append_card(old_fmd: str, new_text: np.ndarray, out_fmd: str,
+                   sbits: int = 3, device=None):
+    """`build -i` on the device: the new block's BWT sorted there, the old
+    index restored there, the gap bits walked over both and the two BWTs
+    interleaved there; the merged BWT run-length coded on the host and
+    written to out_fmd ("-": standard output).  Its device peak is about
+    card_append_bytes."""
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.construct import blocked
+
+    device = resolve_device(device)
+    secs, peak = {}, {}
+    APPEND_STATS.update(route="card", seconds=secs, device_peak=peak)
+    part = _part_timer(device, secs, peak)
+    with part("sort"):
+        bwt1 = blocked.device_bwt(new_text, device)
+    with part("restore"):
+        e0 = FMDIndex.restore(old_fmd, device)
+    with part("block_index"):
+        e1 = FMDIndex.from_bwt(bwt1, device)
+    with part("gap_walk"):
+        bits = compute_gap_bits(e0, e1)
+    with part("interleave"):
+        bwt = merge_bwts(e0.bwt(), e1.bwt(), bits)
+    e0 = e1 = bits = None
+    with part("rle"):
+        runs = rld.Runs.from_bwt(bwt.cpu().numpy())
+    del bwt
+    with part("dump"):
+        rld.write_fmd(runs, out_fmd, sbits=sbits)
+
+
 def fm_append_streaming(old_fmd: str, new_text: np.ndarray, out_fmd: str,
                         n_threads: int = 4, sbits: int = 3, device=None):
     """Append a text block to an index on disk at the reference's fm_append
@@ -186,29 +305,39 @@ def fm_append_streaming(old_fmd: str, new_text: np.ndarray, out_fmd: str,
     on `device` (default CUDA; "cpu" runs the plain version), then its
     walks run on the host.  Anonymous memory is O(block): the block's BWT,
     its host index and one int64 position per new symbol.  The output's
-    bytes equal `build -i`'s."""
+    bytes equal fm_append_card's."""
     from fermi_tpu_torch import resolve_device
     from fermi_tpu_torch.construct import blocked
     from fermi_tpu_torch.index.blkidx import ensure_blk
     from fermi_tpu_torch.search.smem import _native_index_arrays
 
     device = resolve_device(device)
+    secs, peak = {}, {}
+    APPEND_STATS.update(route="stream", seconds=secs, device_peak=peak)
+    part = _part_timer(device, secs, peak)
     lib = native.get_lib()
-    blk0 = ensure_blk(old_fmd, n_threads=n_threads)
-    bwt1 = np.ascontiguousarray(
-        blocked.device_bwt(np.ascontiguousarray(new_text, np.uint8), device),
-        np.uint8)
-    blocks, occ, cnt8, n_seqs1 = _native_index_arrays(
-        FMDIndex.from_bwt(bwt1, "cpu"))
+    with part("blk"):
+        blk0 = ensure_blk(old_fmd, n_threads=n_threads)
+    with part("sort"):
+        bwt1 = np.ascontiguousarray(blocked.device_bwt(
+            np.ascontiguousarray(new_text, np.uint8), device), np.uint8)
+    with part("block_index"):
+        blocks, occ, cnt8, n_seqs1 = _native_index_arrays(
+            FMDIndex.from_bwt(bwt1, "cpu"))
     n1 = int(bwt1.size)
     pos = np.empty(n1, np.int64)
-    rc = lib.fappend_gaps(blk0.path.encode(), blocks.ctypes.data,
-                          occ.ctypes.data, blocks.shape[0], cnt8.ctypes.data,
-                          n_seqs1, blk0.n_seqs, pos.ctypes.data, n_threads)
+    with part("gaps"):
+        rc = lib.fappend_gaps(blk0.path.encode(), blocks.ctypes.data,
+                              occ.ctypes.data, blocks.shape[0],
+                              cnt8.ctypes.data, n_seqs1, blk0.n_seqs,
+                              pos.ctypes.data, n_threads)
     if rc:
         raise OSError(f"fappend_gaps({old_fmd}) failed rc={rc}")
-    lib.fappend_sort(pos.ctypes.data, n1)
-    rc = lib.fappend_interleave(old_fmd.encode(), bwt1.ctypes.data,
-                                pos.ctypes.data, n1, out_fmd.encode(), sbits)
+    with part("sort_positions"):
+        lib.fappend_sort(pos.ctypes.data, n1)
+    with part("interleave"):
+        rc = lib.fappend_interleave(old_fmd.encode(), bwt1.ctypes.data,
+                                    pos.ctypes.data, n1, out_fmd.encode(),
+                                    sbits)
     if rc:
         raise OSError(f"fappend_interleave({old_fmd}) failed rc={rc}")

@@ -67,7 +67,12 @@ def _add_build(sub):
 def cmd_build(args):
     """The index of the reads, sorted on the device; with -i, the index
     of an existing index's reads followed by these (the reference's
-    fm_append, merge.c:139-209), merged on the device."""
+    fm_append, merge.c:139-209).  -i takes the card route (the old index
+    restored and merged on the device) when its device peak, reckoned from
+    the old .fmd's header before anything is allocated, fits the device's
+    free memory, else fermi_tpu's streaming route (the old index read off
+    its .fmd.blk and its runs, never expanded); both give the same
+    bytes."""
     import os
     from fermi_tpu_torch import resolve_device, rld
     from fermi_tpu_torch.core import dna, fastx
@@ -77,6 +82,7 @@ def cmd_build(args):
     if args.out != "-" and not args.force and os.path.exists(args.out):
         sys.stderr.write(f"[E::build] File `{args.out}' exists. Use -f to overwrite.\n")
         return 1
+    t0 = time.perf_counter()
     seqs = []
     for rec in fastx.read_fastx(args.fastx):
         s = dna.encode(rec.seq)
@@ -84,15 +90,24 @@ def cmd_build(args):
             s = s[: args.max_len]
         seqs.append(s)
     text = suffix.build_text(seqs, trim_palindrome=not args.no_trim_pal)
-    bwt = blocked.device_bwt(text, device)
+    t_text = time.perf_counter() - t0
     if args.append_to:
         from fermi_tpu_torch.algos import merge as mg
-        from fermi_tpu_torch.index.fmd import FMDIndex
 
-        e0 = FMDIndex.restore(args.append_to, device)
-        e1 = FMDIndex.from_bwt(bwt, device)
-        bwt = mg.merge_bwts(e0.bwt(), e1.bwt(), mg.compute_gap_bits(e0, e1))
-        bwt = bwt.cpu().numpy()
+        n_old, n_seqs = mg.fmd_counts(args.append_to)
+        route, need, free = mg.append_route(n_old, text.size, device)
+        sys.stderr.write(
+            f"[M::build] append {text.size} symbols to {n_old} "
+            f"({n_seqs} sequences) by the {route} route: reckoned device "
+            f"peak {need} bytes, free {'-' if free is None else free}\n")
+        sys.stdout.flush()              # the codec writes `-' to fd 1
+        append = (mg.fm_append_card if route == "card"
+                  else mg.fm_append_streaming)
+        append(args.append_to, text, args.out, sbits=args.sbits,
+               device=device)
+        mg.APPEND_STATS["seconds"]["encode_text"] = t_text
+        return 0
+    bwt = blocked.device_bwt(text, device)
     rld.write_fmd(rld.Runs.from_bwt(bwt), args.out, sbits=args.sbits)
     return 0
 

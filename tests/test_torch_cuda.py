@@ -873,6 +873,51 @@ def test_merge_with_self_unfused_card(card, tmp_path, monkeypatch):
     assert rank_cuda.LAUNCHES["rank6_fused"] == before["rank6_fused"]
 
 
+def test_build_append_routes_card(card, tmp_path, monkeypatch):
+    """`build -i` on the card by both routes: with the free-byte figure
+    below the card route's reckoned peak it streams (the block sorted on
+    the card, no K1 launch), as is it takes the card route, whose gap walk
+    launches rank_block_counts on the old index (FUSED_MAX lowered to its
+    size: the layout past 2^32 - 128 symbols) beside rank6_fused on the
+    new block.  The same bytes, those of `build` of all the reads."""
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.cli.main import main
+    from fermi_tpu_torch.index import fmd as tfmd
+
+    monkeypatch.setenv("FERMI_TPU_IDX_DTYPE", "int64")
+    r0 = random_reads(300, seed=71, with_genome=True, genome_len=4000)
+    r1 = random_reads(100, seed=72, with_genome=True, genome_len=4000)
+    fa0, fa1, fa = (str(tmp_path / f"{n}.fa") for n in ("r0", "r1", "all"))
+    write_fasta(fa0, r0)
+    write_fasta(fa1, r1)
+    write_fasta(fa, r0 + r1)
+    old, want = str(tmp_path / "old.fmd"), str(tmp_path / "all.fmd")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert main(["build", "--device", "cpu", "-fo", old, fa0]) == 0
+        assert main(["build", "--device", "cpu", "-fo", want, fa]) == 0
+    monkeypatch.setattr(tfmd, "FUSED_MAX", mg.fmd_counts(old)[0])
+    got = {}
+    for route, free in (("stream", lambda dev: 0), ("card", mg.free_bytes)):
+        monkeypatch.setattr(mg, "free_bytes", free)
+        got[route] = str(tmp_path / f"{route}.fmd")
+        before = dict(rank_cuda.LAUNCHES)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert main(["build", "--device", "cuda", "-fo", got[route],
+                         "-i", old, fa1]) == 0
+        assert f"by the {route} route" in err.getvalue()
+        assert mg.APPEND_STATS["route"] == route
+        after = rank_cuda.LAUNCHES
+        if route == "stream":
+            assert after == before
+        else:
+            assert after["rank_block_counts"] > before["rank_block_counts"]
+            assert after["rank6_fused"] > before["rank6_fused"]
+    data = [open(p, "rb").read() for p in (got["stream"], got["card"], want)]
+    assert data[0] == data[1] == data[2]
+
+
 def test_blocked_past_fused_max_card(card, monkeypatch):
     """The blocked builder on the card with FUSED_MAX lowered below the
     text, so its last folds walk an accumulated index without fused rows

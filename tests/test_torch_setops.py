@@ -7,6 +7,9 @@ binary; here fermi_tpu's own functions are the oracle, and the merged and
 sub indexes are also held to `build` of the concatenated or chosen reads.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -405,22 +408,16 @@ def test_cli_build_append_unfused(pair, tmp_path, monkeypatch):
         open(pair["paths"][2], "rb").read()
 
 
-def test_two_indexes_merged_oracles(pair, tmp_path, monkeypatch):
-    """The smoke test's gates on its index past 2^32, in small: the SA
-    interval of every query by multi_backward_search over a and b (no gap
-    bits on that path) equals backward_search's over `merge a b` restored
-    int64 without fused rows, and fermi_tpu's multi_backward_search's;
-    ids n_a + y of the merged index unpack to b's read y, ids x < n_a to
-    a's read x."""
+def _held_to_its_blocks(pair, ea, eb, m, against_fermi_tpu=True):
+    """The SA interval of every query by multi_backward_search over ea
+    and eb (no gap bits on that path) equals backward_search's over m (the
+    index of both blocks, int64 without fused rows) and, where asked,
+    fermi_tpu's multi_backward_search's (a minute of JAX dispatch); ids
+    n_a + y of m unpack to b's read y, ids x < n_a to a's read x."""
     from fermi_tpu.search import extend as jex
     from fermi_tpu_torch.core import dna
     from fermi_tpu_torch.search import extend as se
 
-    a, b, _ = pair["paths"]
-    merged = str(tmp_path / "m.fmd")
-    _unfused_int64(monkeypatch, 0)
-    assert tmain(["merge", "--device", "cpu", "-fo", merged, a, b]) == 0
-    ea, eb, m = (FMDIndex.restore(p, "cpu") for p in (a, b, merged))
     assert m.fused is None and m.idtype == torch.int64
     rng = np.random.default_rng(55)
     qs = []
@@ -443,7 +440,9 @@ def test_two_indexes_merged_oracles(pair, tmp_path, monkeypatch):
     ja, jb = JIndex.from_bwt(pair["b0"]), JIndex.from_bwt(pair["b1"])
     for q, g in zip(qs, got):
         assert se.multi_backward_search([ea, eb], q) == g
-        assert tuple(map(int, jex.multi_backward_search([ja, jb], q))) == g
+        if against_fermi_tpu:
+            assert tuple(map(int, jex.multi_backward_search([ja, jb],
+                                                            q))) == g
     assert sum(n > 0 for _, _, n in got) >= 50
 
     want_a, _ = se.retrieve_strings(ea, np.arange(ea.n_seqs))
@@ -454,6 +453,184 @@ def test_two_indexes_merged_oracles(pair, tmp_path, monkeypatch):
     assert all(np.array_equal(s, w) for s, w in zip(seqs, want_a + want_b))
     assert [dna.decode(seqs[ea.n_seqs + 2 * y]) for y in range(5)] == \
         pair["r1"][:5]
+
+
+def test_two_indexes_merged_oracles(pair, tmp_path, monkeypatch):
+    """The smoke test's gates on its index past 2^32, in small, over
+    `merge a b` (_held_to_its_blocks)."""
+    a, b, _ = pair["paths"]
+    merged = str(tmp_path / "m.fmd")
+    _unfused_int64(monkeypatch, 0)
+    assert tmain(["merge", "--device", "cpu", "-fo", merged, a, b]) == 0
+    ea, eb, m = (FMDIndex.restore(p, "cpu") for p in (a, b, merged))
+    _held_to_its_blocks(pair, ea, eb, m)
+
+
+# -- build -i's two routes -------------------------------------------------
+
+APPEND_DOMAINS = ["default", "unfused_int64"]
+
+
+def _append_domain(monkeypatch, domain):
+    if domain == "unfused_int64":
+        _unfused_int64(monkeypatch, 0)
+
+
+def _append_inputs(pair, tmp_path):
+    """A copy of a's index (its .fmd.blk not yet built) and b's reads as
+    FASTA; b's symbols."""
+    old = str(tmp_path / "old.fmd")
+    shutil.copyfile(pair["paths"][0], old)
+    fa = str(tmp_path / "r1.fa")
+    write_fasta(fa, pair["r1"])
+    return old, fa, pair["b1"].size
+
+
+def _force_route(monkeypatch, pair, route):
+    """The free-byte figure one below the card route's reckoned peak for
+    appending b to a (the streaming route), or equal to it (the card
+    route)."""
+    need = TM.card_append_bytes(pair["b0"].size, pair["b1"].size)
+    free = need - 1 if route == "stream" else need
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+    return need, free
+
+
+@pytest.mark.parametrize("domain", APPEND_DOMAINS)
+def test_cli_build_append_streams_past_free_memory(pair, tmp_path,
+                                                    monkeypatch, capsys,
+                                                    domain):
+    """`build -i` onto an index whose card route would not fit the free
+    device memory takes fermi_tpu's streaming route (no gap walk on the
+    device; the old index's .fmd.blk built beside it), printed on stderr;
+    with the free bytes at the reckoned peak it takes the card route.
+    Both give fermi_tpu's `build -i` bytes and `build` of all the reads."""
+    old, fa, n1 = _append_inputs(pair, tmp_path)
+    jout = str(tmp_path / "j.fmd")
+    assert jmain(["build", "-fo", jout, "-i", pair["paths"][0], fa]) == 0
+    _append_domain(monkeypatch, domain)
+    walks = []
+    orig = TM.compute_gap_bits
+
+    def spy(e0, e1, **kw):
+        walks.append((e0.idtype, e0.fused is None))
+        return orig(e0, e1, **kw)
+    monkeypatch.setattr(TM, "compute_gap_bits", spy)
+    outs = {}
+    for route in ("stream", "card"):
+        need, free = _force_route(monkeypatch, pair, route)
+        outs[route] = str(tmp_path / f"{route}.fmd")
+        capsys.readouterr()
+        assert tmain(["build", "--device", "cpu", "-fo", outs[route], "-i",
+                      old, fa]) == 0
+        err = capsys.readouterr().err
+        assert f"[M::build] append {n1} symbols to {pair['b0'].size} " \
+            f"({tfmd.FMDIndex.restore(old, 'cpu').n_seqs} sequences) by " \
+            f"the {route} route: reckoned device peak {need} bytes, free " \
+            f"{free}\n" in err
+        if route == "stream":
+            assert walks == [] and os.path.exists(old + ".blk")
+            assert TM.APPEND_STATS["route"] == "stream"
+    unfused = domain == "unfused_int64"
+    assert walks == [(torch.int64 if unfused else torch.int32, unfused)]
+    data = [open(p, "rb").read() for p in (outs["stream"], outs["card"],
+                                          jout, pair["paths"][2])]
+    assert data[0] == data[1] == data[2] == data[3]
+
+
+def test_append_route_decision(monkeypatch):
+    """The route by the free bytes: the card route at the reckoned peak
+    and off CUDA, the streaming route one byte below; fermi_tpu's layouts
+    by size (2.5 B a symbol int32 with fused rows, 2.75 int64 with them,
+    2.0 past FUSED_MAX); on an 80 GB card's free memory a 9.05 Gsym index
+    takes the card route and a 2^35-symbol one the streaming route."""
+    n1 = 80_800_000
+    need = TM.card_append_bytes(1 << 30, n1)
+    for free, route in ((need, "card"), (need - 1, "stream"),
+                        (None, "card")):
+        monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+        assert TM.append_route(1 << 30, n1, "cpu") == (route, need, free)
+    for n, rate in ((1 << 30, 2.5), (1 << 31, 2.75), (1 << 33, 2.0)):
+        assert TM.index_layout_bytes(n) == (n // 128 + 1) * 128 * rate
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: 79 * 10**9)
+    assert TM.append_route(9_049_600_000, n1, "cuda")[0] == "card"
+    assert TM.append_route(2**35, n1, "cuda")[0] == "stream"
+
+
+@pytest.mark.parametrize("domain", APPEND_DOMAINS)
+def test_append_reckons_the_restored_layouts(pair, monkeypatch, domain):
+    """card_append_bytes is the old index's arrays as a restore lays them
+    out and the new block's as from_bwt does (fused rows or not, int32 or
+    int64), 2 B a merged symbol, and the chunk temporaries."""
+    _append_domain(monkeypatch, domain)
+    e0 = FMDIndex.restore(pair["paths"][0], "cpu")
+    e1 = FMDIndex.from_bwt(pair["b1"], "cpu")
+    assert (e0.fused is None) == (domain == "unfused_int64")
+
+    def layout(e):
+        return sum(a.numel() * a.element_size() for a in (
+            e.bwt_blocks, e.occ, e.bwt_packed, e.fused) if a is not None)
+    n0, n1 = e0.total, e1.total
+    assert TM.index_layout_bytes(n0) == layout(e0)
+    assert TM.index_layout_bytes(n1) == layout(e1)
+    temps = (TM.RESTORE_SLICE_BYTES_PER_SYMBOL * tfmd.RESTORE_CHUNK
+             + TM.MERGE_CHUNK_BYTES_PER_SYMBOL * TM.MERGE_CHUNK)
+    assert TM.card_append_bytes(n0, n1) == \
+        layout(e0) + layout(e1) + 2 * (n0 + n1) + temps
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_fmd_counts_from_the_header(pair, tmp_path, which):
+    """The header's symbols and sequences, with no run decoded: those of
+    rld.read_fmd; a file that is no RLD\\2 index raises."""
+    from fermi_tpu_torch import rld
+
+    path = pair["paths"][which]
+    runs = rld.read_fmd(path)
+    assert TM.fmd_counts(path) == (runs.total, runs.n_seqs)
+    bad = tmp_path / "bad.fmd"
+    bad.write_bytes(open(path, "rb").read()[:36])
+    with pytest.raises(ValueError, match="truncated"):
+        TM.fmd_counts(str(bad))
+    bad.write_bytes(b"RLE" + open(path, "rb").read()[3:])
+    with pytest.raises(ValueError, match="not an RLD"):
+        TM.fmd_counts(str(bad))
+
+
+@pytest.mark.parametrize("route", ["card", "stream"])
+def test_cli_build_append_to_stdout(pair, tmp_path, monkeypatch,
+                                    capfdbinary, route):
+    """`build -i -o -` on either route writes fermi_tpu's `build -i -o -`
+    bytes to file descriptor 1, the [M::build] line to 2."""
+    old, fa, _ = _append_inputs(pair, tmp_path)
+    jold = str(tmp_path / "jold.fmd")
+    shutil.copyfile(old, jold)
+    assert jmain(["build", "-i", jold, fa]) == 0
+    want = capfdbinary.readouterr().out
+    _force_route(monkeypatch, pair, route)
+    assert tmain(["build", "--device", "cpu", "-i", old, fa]) == 0
+    got = capfdbinary.readouterr()
+    assert got.out == want == open(pair["paths"][2], "rb").read()
+    assert f"by the {route} route".encode() in got.err
+
+
+@pytest.mark.parametrize("route", ["card", "stream"])
+def test_appended_index_oracles(pair, tmp_path, monkeypatch, route):
+    """The smoke test's gates on its appended index, in small, in the
+    unfused int64 domain: `build -i` of b's reads onto a by either route
+    held to a's and b's own indexes (_held_to_its_blocks; the port's
+    multi_backward_search is held to fermi_tpu's over the same two
+    indexes in test_two_indexes_merged_oracles)."""
+    old, fa, _ = _append_inputs(pair, tmp_path)
+    _unfused_int64(monkeypatch, 0)
+    _force_route(monkeypatch, pair, route)
+    app = str(tmp_path / "app.fmd")
+    assert tmain(["build", "--device", "cpu", "-fo", app, "-i", old,
+                  fa]) == 0
+    assert TM.APPEND_STATS["route"] == route
+    ea, m = (FMDIndex.restore(p, "cpu") for p in (old, app))
+    eb = FMDIndex.from_bwt(pair["b1"], "cpu")
+    _held_to_its_blocks(pair, ea, eb, m, against_fermi_tpu=False)
 
 
 @pytest.mark.parametrize("comp", [[], ["-c"]])
