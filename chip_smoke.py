@@ -12,10 +12,15 @@ through their entry points at the size of a bacterial re-sequencing run of
 a random 1,042,519 bp genome (the length of Chlamydia trachomatis
 D/UW-3/CX), 30x of 100 bp reads:
 
+- the host's memory and the largest `build` each package takes on this
+  machine: fermi_tpu's sorts on the host (10 B a symbol), the port's on
+  the card in one piece while its reckoned device peak
+  (algos/merge.py build_bytes) fits an empty card's free memory, by
+  prefix doubling below 2^31 - 8 symbols and the blocked builder above;
 - K2's entry `sw_score_batch` on 65,536 alignment pairs (and one 300 bp
   query in a 6,000 bp target, longer than one chunk of the kernel's rows);
 - `build` of error-free reads (about 63 Msym of index), `unpack` of 1,000
-  ids, and `exact` of 16,384 reads with 1% substitutions; the first 128
+  ids, and `exact` of 8,192 reads with 1% substitutions; the first 128
   queries are searched again on the CPU and must give the same SMEM tuples;
   then K1 on uniform keys at the shape of a loop step, K1 on the keys of
   every loop step of one 4,096-read `exact` batch (dead interval slots at
@@ -39,6 +44,15 @@ D/UW-3/CX), 30x of 100 bp reads:
 - the text of the error-free reads through each device builder alone
   (prefix doubling, the blocked builder: 40 Mi-symbol wsort blocks folded
   by the gap-bit merge, and BCR), each index byte-equal to `build`'s;
+  the reckoned device peak of `build` (prefix doubling) and of the
+  blocked builder each held to the measured one (never below, at most 1
+  GB over), as later that of [huge]'s raw_fmd of both blocks;
+- `build` of the same reads with a ballast tensor holding all of the
+  card's free memory but 42%, then 28%, of the one-piece build's
+  reckoned peak: the card's own free memory sends it down the span
+  route, 3 spans whose folds take `build -i`'s card route, then 4 spans
+  with a fold by its streaming route, each byte-equal to `build`'s
+  index; each span's sort and card fold held to its reckoning;
 - run-fermi.pl -B's shape: the reads split into 4 files, each built,
   `merge` of the 4, and `merge` of 3 then `build -i` of the fourth, both
   byte-equal to `build` of all of them;
@@ -92,7 +106,7 @@ D/UW-3/CX), 30x of 100 bp reads:
 - `-M`, out of core on the host, over the files above, each call held to
   launch no kernel and allocate nothing on the card: the .fmd.blk record
   cache of the 63 Msym index (seconds, size); `exact -M` of the first
-  2,048 queries equal to the card's `exact` of them, with reads/s and each
+  1,024 queries equal to the card's `exact` of them, with reads/s and each
   call's peak RSS in a child process; `unpack -M` of the 1,000 ids;
   `seqsort -M -t 8` of the corrected index equal to its .rank; `correct -M
   -t 8` of the fix rerun's reads equal to the card's; `unitig -M -t 1 -l
@@ -107,7 +121,7 @@ D/UW-3/CX), 30x of 100 bp reads:
   equal to the host engine
   `seqsort_native`, `unitig -l 100 -r` equal to the native host walk
   `fm6_unitig_native(..., 1)` (run beside it), with N50 and the share of
-  unitig bases found exactly in genome P, and `retrieve_mates` of 1,024
+  unitig bases found exactly in genome P, and `retrieve_mates` of 512
   reads equal to the host walk of the mapped .fmd; seconds and K1
   launches by call, the longest walk, the route unitig took, the device
   peak;
@@ -118,7 +132,7 @@ D/UW-3/CX), 30x of 100 bp reads:
   blocks past 2^31 symbols), the index restored once in the int64 domain
   with fused rows (its device peak held to the layout, 2.75 B a symbol,
   plus 6 GB), then `chkbwt -r`, rank6 at 64 positions against a host
-  scan, `exact` of 20,000 matched reads byte-equal to the native engine and
+  scan, `exact` of 10,000 matched reads byte-equal to the native engine and
   to `exact -M`, `unpack` of 1,000 ids against the reads; seconds by part,
   device and host peaks; K1 at the main path's shape on the wide rows;
 - a read set past 2^32 symbols indexed from its reads, inside the wide
@@ -129,11 +143,11 @@ D/UW-3/CX), 30x of 100 bp reads:
   `rank_block_counts`), and the driver's raw_fmd of both FASTQ files in
   one build (108 blocks; the accumulated index loses its fused rows in
   the last folds, whose gap walks launch `rank_block_counts`): that
-  index byte-equal to the merge's; the SA intervals of 256 queries (cut
+  index byte-equal to the merge's; the SA intervals of 128 queries (cut
   from either block's reads, from the genome, random) over both blocks'
   indexes at once equal to the merged index's; the merged index restored
   once (its device peak held to the layout, 2.0 B a symbol, plus 6 GB),
-  `exact` of the first 4,096 wide queries byte-equal to the native engine
+  `exact` of the first 2,048 wide queries byte-equal to the native engine
   and to `exact -M` over the 256 B-record .fmd.blk, `unpack` of ids of
   either block against its reads; seconds by part of both builds, the
   fold where the accumulator went unfused, device peaks by part, host
@@ -144,7 +158,7 @@ D/UW-3/CX), 30x of 100 bp reads:
   card, the gap walk on `rank_block_counts` beside `rank6_fused` on C's
   block) and by fermi_tpu's streaming route (`fm_append_streaming` over
   the .fmd.blk, no K1): both byte-equal (4,605,600,000 symbols); the SA
-  intervals of 320 queries over the merged index and C's at once equal
+  intervals of 160 queries over the merged index and C's at once equal
   to the appended index's; `unpack` of C's ids and a few of A's and B's;
   the route `build -i` takes for a 9.05 Gsym and a 2^35-symbol index on
   the card's free memory; seconds by part of each route, the card
@@ -154,7 +168,7 @@ D/UW-3/CX), 30x of 100 bp reads:
   walk on `rank_block_counts`), restored a slice at a time (its device
   peak held to 2.0 B a symbol plus 6 GB), then `chkbwt -r`, rank6 at 64
   positions (half past 2^33) against a scan of the runs on the host,
-  `exact` of the 4,096 queries byte-equal to the 4.52 Gsym index's
+  `exact` of the 2,048 queries byte-equal to the 4.52 Gsym index's
   records with every size doubled, `unpack` of ids x + j * n (j < 2, n
   that index's sequences) against the reads behind x; no `rank6_fused`
   launch.
@@ -177,6 +191,7 @@ non-zero; so does a machine without CUDA.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import io
@@ -543,10 +558,73 @@ def launches():
     return {**rank_cuda.LAUNCHES, **sw_cuda.LAUNCHES}
 
 
+RECKONING_SLACK = 1e9             # a builder's reckoned peak over its measured
+
+
+def reckoning_held(tag, reckoned, peak, on_card=True):
+    """A builder's reckoned device peak (algos/merge.py) held to the peak
+    it was measured at above what was resident: never below it, over it
+    by at most RECKONING_SLACK bytes (on the card; the CPU measures
+    none).  Returns both for the phase's line."""
+    if on_card and not 0 <= reckoned - peak <= RECKONING_SLACK:
+        raise AssertionError(f"{tag}: reckoned device peak {reckoned} B "
+                             f"against {peak} B measured")
+    return dict(reckoned_bytes=reckoned, peak_bytes=peak)
+
+
+# fermi_tpu's host `build` (construct/suffix.py's native sort): the text,
+# its int64 suffix array and the BWT
+FERMI_TPU_BUILD_BYTES_PER_SYMBOL = 10
+
+
+def largest_build(lo, hi, free):
+    """The largest n in [lo, hi) whose `build` of READ_LEN reads (n /
+    (READ_LEN + 1) sequences) fits `free` device bytes by
+    merge.build_bytes, or None; build_bytes grows with n in that range."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    return mg._last_true(lo, hi, lambda n: mg.build_bytes(
+        n, n // (READ_LEN + 1)) <= free)
+
+
+def host_phase(dev):
+    """The host's memory and the largest `build` each package takes on
+    this machine: fermi_tpu's sorts on the host at
+    FERMI_TPU_BUILD_BYTES_PER_SYMBOL of MemAvailable; the port's builds in
+    one piece on the card while merge.build_bytes fits an empty card's
+    free memory, by prefix doubling below suffix_device.MAX_TEXT and by
+    the blocked builder above it, and in spans beyond.  C1 shows where
+    fermi_tpu's host takes a text the port's one piece cannot."""
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.construct import suffix_device
+
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            mem[key] = int(val.split()[0]) * 1024
+    torch.cuda.empty_cache()
+    free = mg.free_bytes(dev)
+    top = suffix_device.MAX_TEXT
+    doubling = largest_build(1, top, free)
+    blocked = largest_build(top, 1 << 40, free)
+    fermi_tpu = mem["MemAvailable"] // FERMI_TPU_BUILD_BYTES_PER_SYMBOL
+    one_piece = blocked or doubling
+    log("host", mem_total_gib=mem["MemTotal"] / 2**30,
+        mem_available_gib=mem["MemAvailable"] / 2**30,
+        fermi_tpu_build_max_symbols=fermi_tpu, card_free_bytes=free,
+        port_doubling_max_symbols=doubling,
+        port_blocked_max_symbols=blocked,
+        c1_doubling_gap=[doubling, min(fermi_tpu, top - 1)]
+        if fermi_tpu > doubling else None,
+        c1_past_the_card=fermi_tpu > one_piece)
+
+
 def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
     """build -> unpack -> exact through the CLI on `dev`.  Returns what the
     cross-check and the kernel line need."""
     from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import merge as mg
     from fermi_tpu_torch.ops import rank_cuda as rc
     from fermi_tpu_torch.search import smem as sm
 
@@ -562,19 +640,25 @@ def main_path(rng, workdir, dev, genome_len, n_reads, n_queries):
 
     # build: the BWT is sorted on the device
     fmd = os.path.join(workdir, "idx.fmd")
+    base = 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    t_build, _, _ = run_cli(["build", *dv, "-fo", fmd, reads_fa])
+        base = torch.cuda.memory_allocated()
+    t_build, _, err = run_cli(["build", *dv, "-fo", fmd, reads_fa])
     runs = rld.read_fmd(fmd)
     n_sym = runs.total
-    peak_build = torch.cuda.max_memory_allocated() if on_card else 0
+    peak_build = torch.cuda.max_memory_allocated() - base if on_card else 0
     if n_sym != 2 * n_reads * (READ_LEN + 1):
         raise AssertionError(f"index holds {n_sym} symbols")
     if on_card and peak_build < 8 * n_sym:
         raise AssertionError("build did not sort on the card")
+    reckoned = reckoning_held("build", mg.build_bytes(n_sym, 2 * n_reads),
+                              peak_build, on_card)
+    if "by the card route" not in err:
+        raise AssertionError(f"build took another route: {err}")
     log("build", seconds=t_build, msym=n_sym / 1e6,
         fmd_mb=os.path.getsize(fmd) / 2**20, runs=len(runs.lengths),
-        device_peak_gb=peak_build / 2**30)
+        device_peak_gb=peak_build / 2**30, **reckoned)
 
     # unpack: ids x are sequence x of the text (read x//2, its reverse
     # complement when x is odd)
@@ -1543,21 +1627,32 @@ def builders_phase(workdir, res, dev):
     folded by the gap-bit merge) and BCR on the strands; the BWTs written
     as .fmd must equal main_path's index byte for byte.  Returns the K1
     launches."""
+    from fermi_tpu_torch.algos import merge as mg
     from fermi_tpu_torch.construct import bcr_device, blocked
     from fermi_tpu_torch.construct.suffix_device import multistring_bwt_device
 
     t0 = time.perf_counter()
     text, strands = nt6_text(res["reads"])
+    res["text"] = text
+    seqs = len(strands)
     prep_s = time.perf_counter() - t0
     out = {}
+    base = torch.cuda.memory_allocated()
     bwt, out["doubling_s"], out["doubling_peak_gb"] = timed(
         dev, lambda: multistring_bwt_device(text, dev))
+    out["doubling_peak_gb"] -= base
+    reckoned = {"doubling": reckoning_held(
+        "doubling", mg.doubling_bytes(text.size), out["doubling_peak_gb"])}
     ok = same_bytes(write_bwt(bwt, os.path.join(workdir, "pd.fmd")),
                     res["fmd"])
     del bwt
     reset_launches()
+    base = torch.cuda.memory_allocated()
     bwt, out["blocked_s"], out["blocked_peak_gb"] = timed(
         dev, lambda: blocked.device_build_text(text, device=dev))
+    out["blocked_peak_gb"] -= base
+    reckoned["blocked"] = reckoning_held(
+        "blocked", mg.blocked_bytes(text.size, seqs), out["blocked_peak_gb"])
     k1 = launches()["rank6_fused"]
     ok_blk = same_bytes(write_bwt(bwt, os.path.join(workdir, "blk.fmd")),
                         res["fmd"])
@@ -1576,11 +1671,90 @@ def builders_phase(workdir, res, dev):
         block_symbols=blocked.BLOCK_SYMBOLS, sort_s=st["sort_s"],
         merge_s=st["merge_s"], merge_steps=st["merge_steps"],
         k1_launches=k1, cli_build_s=res["t_build"], doubling_equal=ok,
-        blocked_equal=ok_blk, bcr_equal=ok_bcr)
+        blocked_equal=ok_blk, bcr_equal=ok_bcr, reckoned=reckoned)
     if not (ok and ok_blk and ok_bcr):
         raise AssertionError("an index built alone differs from build's")
     if k1 < 1:
         raise AssertionError("the blocked builder did not launch K1")
+    return k1
+
+
+# The card's free memory [build_spans] leaves beside its ballast, as shares
+# of the main text's reckoned one-piece peak: 3 spans whose 2 folds take
+# the card route, and 4 spans whose last fold takes the streaming route.
+SPAN_SHARES = {"card": 0.42, "stream": 0.28}
+
+
+def build_spans_phase(workdir, res, dev):
+    """`build` of the main reads through the CLI with a ballast tensor
+    holding all of the card's free memory (merge.free_bytes) but a
+    SPAN_SHARES share of the text's reckoned one-piece peak, so the card's
+    own free memory sends it down the span route: spans, each fold's route
+    (`build -i`'s card or streaming route), seconds, reckoned and measured
+    device peaks above the ballast and K1 launches.  Each output must
+    equal idx.fmd byte for byte; each fold's measured peak is held to its
+    reckoning.  Returns the K1 launches."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    text = res["text"]
+    need = mg.build_bytes(text.size, int(np.count_nonzero(text == 0)))
+    out, k1 = {}, 0
+    for kind, share in SPAN_SHARES.items():
+        torch.cuda.empty_cache()
+        goal = int(need * share)
+        ballast = torch.empty(mg.free_bytes(dev) - goal, dtype=torch.uint8,
+                              device=dev)
+        base = torch.cuda.memory_allocated()
+        path = os.path.join(workdir, f"spans_{kind}.fmd")
+        reset_launches()
+        secs, _, err = run_cli(["build", "--device", str(dev), "-fo", path,
+                                res["reads_fa"]])
+        counted = launches()
+        del ballast
+        torch.cuda.empty_cache()
+        st = mg.BUILD_STATS
+        # each part resets the peak: the build's is the largest part's
+        peak = max(*st["device_peak"].values(),
+                   *(v for f in st["folds"]
+                     for v in f["device_peak"].values())) - base
+        cuts = mg.span_cuts(text, st["free"])
+        folds = [dict(route=f["route"], symbols=f["symbols"],
+                      seconds=f["seconds"], reckoned_bytes=f["need"],
+                      peak_bytes=max(v for k, v in f["device_peak"].items()
+                                     if k != "sort") - base,
+                      sort_reckoned_bytes=mg.build_bytes(f["symbols"]),
+                      sort_peak_bytes=f["device_peak"]["sort"] - base)
+                 for f in st["folds"]]
+        routes = [f["route"] for f in folds]
+        first = dict(symbols=st["spans"][0],
+                     reckoned_bytes=mg.build_bytes(st["spans"][0]),
+                     peak_bytes=st["device_peak"]["sort"] - base,
+                     seconds=st["seconds"])
+        out[kind] = dict(seconds=secs, spans=st["spans"], routes=routes,
+                         goal_bytes=goal, free_bytes=st["free"],
+                         need_bytes=st["need"], peak_bytes=peak,
+                         first=first, folds=folds, k1_launches=counted,
+                         lines=[ln for ln in err.splitlines()
+                                if ln.startswith("[M::build]")])
+        k1 += counted["rank6_fused"] + counted["rank_block_counts"]
+        if not same_bytes(path, res["fmd"]):
+            raise AssertionError(f"build_spans {kind}: not idx.fmd's bytes")
+        os.remove(path)
+        if (st["route"] != "spans" or st["free"] > goal
+                or st["spans"] != [hi - lo for lo, hi in cuts]
+                or f"in {len(cuts)} spans" not in err
+                or ("stream" in routes) != (kind == "stream")
+                or len(routes) != len(cuts) - 1):
+            raise AssertionError(f"build_spans {kind}: {out[kind]}")
+        if ("card" in routes) != (counted["rank6_fused"] > 0):
+            raise AssertionError(f"build_spans {kind}: the card folds' "
+                                 f"launches {counted}")
+        for f in [first] + folds:
+            if f["peak_bytes"] > f["reckoned_bytes"] or f.get(
+                    "sort_peak_bytes", 0) > f.get("sort_reckoned_bytes", 1):
+                raise AssertionError(f"build_spans {kind}: a peak over its "
+                                     f"reckoning: {f}")
+    log("build_spans", msym=text.size / 1e6, reckoned_bytes=need, **out)
     return k1
 
 
@@ -2495,7 +2669,7 @@ def ropebwt_phase(workdir, win_fq, dev):
 
 
 # slice 9: `-M`, out of core on the host
-N_OOC_QUERIES = 2048            # `exact` queries searched with and without -M
+N_OOC_QUERIES = 1024            # `exact` queries searched with and without -M
 OOC_THREADS = 8                 # -t of ensure_blk, seqsort, correct, unitig
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The child samples its own resident set (/proc/self/statm) every 5 ms:
@@ -2612,12 +2786,17 @@ def outofcore_phase(workdir, dev, res, ec_res, ss, ut, win, rp):
         "exact -M", lambda: run_cli(["exact", "-M", fmd, q_fa]))
     eq["exact"] = text == card and text.count("SQ\t") == N_OOC_QUERIES
     rss = {}
-    for key, argv in (("M", ["exact", "-M", fmd, q_fa]),
-                      ("card", ["exact", "--device", str(dev), fmd, q_fa])):
-        secs[f"exact_{key}_child"], imported, rss[key], child_text = \
-            child_maxrss(argv, os.path.join(workdir, f"exact_{key}.txt"))
-        rss.setdefault("import", imported)     # the -M child's baseline
-        eq[f"exact_{key}_child"] = child_text == card
+    # the two children at once: each samples its own resident set
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        calls = {key: pool.submit(child_maxrss, argv, os.path.join(
+            workdir, f"exact_{key}.txt")) for key, argv in (
+                ("M", ["exact", "-M", fmd, q_fa]),
+                ("card", ["exact", "--device", str(dev), fmd, q_fa]))}
+        for key, call in calls.items():
+            secs[f"exact_{key}_child"], imported, rss[key], child_text = \
+                call.result()
+            rss.setdefault("import", imported)  # the -M child's baseline
+            eq[f"exact_{key}_child"] = child_text == card
     out.update(exact_reads_per_s_card=N_OOC_QUERIES / secs["exact_card"],
                exact_reads_per_s_M=N_OOC_QUERIES / secs["exact_M"],
                **{f"peak_rss_gib_{k}": v / 2**20 for k, v in rss.items()})
@@ -2715,7 +2894,7 @@ LONG_COVERAGE = 20              # PacBio-CCS-like reads of that stretch
 LONG_LEN = (1000, 8000)         # read lengths, uniform, bp
 LONG_ERR = 0.001                # substitutions
 LONG_MIN_MATCH = 100            # unitig -l
-N_LONG_MATES = 1024             # reads walked by retrieve_mates
+N_LONG_MATES = 512              # reads walked by retrieve_mates
 
 
 def long_reads(rng, genome, path):
@@ -2887,11 +3066,11 @@ WIDE_COVERAGE = 25              # a random 44.8 Mbp genome
 WIDE_INSERT, WIDE_INSERT_SD = 300, 30
 WIDE_ERR = 0.005                # substitutions, quality 15 (38 elsewhere)
 WIDE_CHUNK = 1 << 19            # pairs drawn and written at a time
-WIDE_QUERIES = 20_000           # matched `exact` reads, 1% fresh substitutions
+WIDE_QUERIES = 10_000           # matched `exact` reads, 1% fresh substitutions
 WIDE_SPOTS = 64                 # rank6 positions checked by a host scan
 WIDE_MIN_SYMBOLS = 2**31        # the index must reach the int64 domain
 HUGE_MIN_SYMBOLS = 2**32        # the merged index must pass 2^32
-HUGE_QUERIES = 4096             # of the wide queries, searched in [huge]
+HUGE_QUERIES = 2048             # of the wide queries, searched in [huge]
 GIANT_MIN_SYMBOLS = 2**33       # [huge] merged with itself must pass 2^33
 RESTORE_SLACK = 6e9             # restore's device peak beyond the layout, B
 
@@ -3112,6 +3291,7 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
     Returns K1's launches on the paths: rank6_fused's (the wide index's
     queries, [huge]'s builds and merge), rank_block_counts' ([huge]'s
     build past FUSED_MAX and merged index, [giant]'s merge and index)."""
+    from fermi_tpu_torch.algos import merge as mg
     from fermi_tpu_torch.cli.main import (CHKBWT_CHUNK, check_ranks,
                                           write_exact)
     from fermi_tpu_torch.core import dna
@@ -3151,6 +3331,8 @@ def wide_phase(rng, workdir, dev, maxi, clock_hz, n_pairs=WIDE_PAIRS):
                              "symbols")
     if counts["blocks"] < 2:
         raise AssertionError("the wide build did not take the blocked path")
+    out["build_reckoned_bytes"] = mg.build_bytes(counts["symbols"],
+                                                 2 * len(reads))
 
     # from the runs the build cached (`merge` in [huge] reads the .fmd)
     runs, idx, secs["restore"], out["restore"] = restore_checked(
@@ -3292,7 +3474,7 @@ def scaled_sizes(exact_text, factor):
     return "".join(out)
 
 
-HUGE_ORACLE = 64                # interval-oracle queries of each kind
+HUGE_ORACLE = 32                # interval-oracle queries of each kind
 
 
 def oracle_queries(rng, read_sets, genome, n=HUGE_ORACLE):
@@ -3447,6 +3629,9 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
     # (b) its blocks and folds
     block = blocked.device_build_text.__defaults__[0] // (READ_LEN + 1)
     strands = 2 * (len(reads_a) + len(reads_b))
+    out["ab"]["reckoned"] = reckoning_held(
+        "huge: the AB build", mg.build_bytes(out["ab"]["symbols"], strands),
+        peak["build_ab"], on_card)
     unfused = [f for f in folds if not f["fused"]]
     out["ab"].update(folds=len(folds), unfused_folds=len(unfused),
                      first_unfused_fold=len(folds) - len(unfused) + 1)
@@ -3900,7 +4085,7 @@ def ptxas_report(jobs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
-    ap.add_argument("--queries", type=int, default=16_384)
+    ap.add_argument("--queries", type=int, default=8192)
     ap.add_argument("--against", metavar="TREE", action="append",
                     default=[],
                     help="another checkout of the repository (e.g. the "
@@ -3940,6 +4125,7 @@ def main():
         ptxas=ptxas(), against=args.against,
         k1_ops_per_word=K1_OPS_PER_WORD, k1_ops_per_query=K1_OPS_PER_QUERY,
         k2_ops_per_cell=K2_OPS_PER_CELL)
+    host_phase(dev)
 
     rng = np.random.default_rng(args.seed)
     err, block_counts = k1_parity(rng, dev, clock_hz)
@@ -3976,6 +4162,7 @@ def main():
                                      workdir, res["genome"], dev)
         k1_example = example_phase(workdir, ec_res["win_fq"], dev)
         setops = [builders_phase(workdir, res, dev),
+                  build_spans_phase(workdir, res, dev),
                   merge_phase(workdir, res, dev),
                   sub_phase(rng, workdir, res, dev)]
         con = contrast_phase(rng, workdir, res, dev)

@@ -21,10 +21,17 @@ record cache, native/rld_codec.cpp fappend_*).  `append_route` chooses
 before anything is allocated on the device: the card route when its
 device peak, reckoned from the old .fmd's header, fits the device's free
 memory, else the streaming route.
+
+`build` chooses the same way (`build_route`): when `build_bytes`, the one-
+piece builder's reckoned device peak, does not fit the free memory, the
+text is cut into the largest spans that fit (`span_cuts`) and folded by
+`build -i`'s routes (`fold_spans`), with fermi_tpu's bytes.
 """
 
 import contextlib
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,7 +69,10 @@ def _gap_walk_chunk(e1, e0, k, i, done, steps: int):
     return k, i, done, pos
 
 
-def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = 1 << 20,
+GAP_BATCH = 1 << 20         # lanes a gap walk advances at a time
+
+
+def compute_gap_bits(e0: FMDIndex, e1: FMDIndex, batch: int = GAP_BATCH,
                      chunk_steps: int = 8) -> torch.Tensor:
     """bool [n0 + n1] on e0's device: True where the merged BWT takes its
     symbol from e1.  The bits do not depend on batch or chunk_steps."""
@@ -177,7 +187,7 @@ def merge_files(paths, out: str, device) -> None:
 
 
 def fm_merge(e0: FMDIndex, bwt0: np.ndarray, e1: FMDIndex, bwt1: np.ndarray,
-             batch: int = 1 << 20) -> np.ndarray:
+             batch: int = GAP_BATCH) -> np.ndarray:
     """Merged BWT of the two indexes (e0's reads first, then e1's)."""
     bits = compute_gap_bits(e0, e1, batch=batch)
     dev = bits.device
@@ -228,26 +238,123 @@ def index_layout_bytes(n: int) -> int:
     return ((n + fmd.BLOCK - 1) // fmd.BLOCK + 1) * row
 
 
+def _slice_temp_bytes(n: int) -> int:
+    """A restore or rebuild slice's temporaries for an n-symbol index: a
+    RESTORE_CHUNK of rows, or the index's rows when it has fewer."""
+    from fermi_tpu_torch.index import fmd
+
+    rows = min(fmd._slice_rows(), (n + fmd.BLOCK - 1) // fmd.BLOCK + 1)
+    return int(RESTORE_SLICE_BYTES_PER_SYMBOL * rows * fmd.BLOCK)
+
+
+def _interleave_temp_bytes(n: int) -> int:
+    """An interleave chunk's temporaries for n merged symbols: a
+    MERGE_CHUNK, or n when fewer."""
+    return MERGE_CHUNK_BYTES_PER_SYMBOL * min(MERGE_CHUNK, n)
+
+
 def card_append_bytes(n_old: int, n_new: int) -> int:
     """The card route's reckoned device peak for appending n_new symbols
     to an n_old-symbol index: both indexes' layouts, the gap bits and the
     merged BWT, and the restore's and the interleave's chunk
-    temporaries."""
-    from fermi_tpu_torch.index import fmd
-
+    temporaries (each at most the indexes' own size)."""
     return int(index_layout_bytes(n_old) + index_layout_bytes(n_new)
                + APPEND_BYTES_PER_MERGED_SYMBOL * (n_old + n_new)
-               + RESTORE_SLICE_BYTES_PER_SYMBOL * fmd._slice_rows()
-               * fmd.BLOCK
-               + MERGE_CHUNK_BYTES_PER_SYMBOL * MERGE_CHUNK)
+               + _slice_temp_bytes(max(n_old, n_new))
+               + _interleave_temp_bytes(n_old + n_new))
+
+
+# Device bytes of `build`'s one-piece builder (construct/blocked.device_bwt)
+# for build_bytes.  Prefix doubling (suffix_device.multistring_bwt_device)
+# peaks in a round's sort: the text (1 B a symbol), the packed key (8),
+# torch.sort's sorted keys and order (8 each), the positions it sorts
+# beside the keys (8) and the radix sort's alternate key and value buffers
+# (16).
+DOUBLING_BYTES_PER_SYMBOL = 49
+# A wsort block (wsort._wsort_bwt) peaks in a key pair's sort, or in the
+# window built before it: the positions, first sentinels and distances to
+# them (int32, 4 each), the padded text (8), the last sort's sorted keys,
+# permutation and composed order (8 each), the key (8), and either
+# torch.sort's 40 (as above) or the shifted key and a window's old,
+# shifted, masked and new words (40).
+WSORT_BYTES_PER_SYMBOL = 92
+# The radix sort's one-sweep passes also keep per-tile digit counters:
+# 256 of 8 B for each tile of at least 4,096 keys.
+SORT_COUNTER_BYTES_PER_SYMBOL = 0.5
+# A gap walk's lane (compute_gap_bits): the chunk's marked positions and
+# their masked copy (136), the lane's state (17) and a step's rank
+# temporaries in either index domain (at most 359).
+WALK_BYTES_PER_LANE = 512
+
+
+def doubling_bytes(n: int) -> int:
+    """Prefix doubling's reckoned device peak for an n-symbol text."""
+    return int((DOUBLING_BYTES_PER_SYMBOL + SORT_COUNTER_BYTES_PER_SYMBOL)
+               * n)
+
+
+def _fold_bytes(n: int, m: int, b: int) -> int:
+    """The blocked builder's fold of a b-symbol block's BWT onto an
+    m-symbol accumulated one, in an n-symbol text: the text and both BWTs,
+    then the larger of the accumulator's index with a rebuild slice, both
+    indexes with the block's rebuild slice, both indexes with the gap
+    bits and a walk's lanes, and the gap bits, the merged BWT and an
+    interleave chunk (blocked.device_build_text)."""
+    t = min(n, m + b)
+    acc, blk = index_layout_bytes(m), index_layout_bytes(b)
+    lanes = min(GAP_BATCH, b // 2)
+    return n + t + max(acc + _slice_temp_bytes(m),
+                       acc + blk + _slice_temp_bytes(b),
+                       acc + blk + t + WALK_BYTES_PER_LANE * lanes,
+                       2 * t + _interleave_temp_bytes(t))
+
+
+def blocked_bytes(n: int, n_seqs: int | None = None) -> int:
+    """The blocked builder's reckoned device peak for an n-symbol text of
+    n_seqs sequences (at most n / 2): the text with its sentinel mask and
+    positions; the text, the accumulated BWT and a block's sort; the last
+    fold, and below it the last fold onto an accumulator with fused rows
+    (whose layout is the larger)."""
+    from fermi_tpu_torch.construct import blocked
+    from fermi_tpu_torch.index import fmd
+
+    seqs = n // 2 if n_seqs is None else n_seqs
+    b = min(blocked.BLOCK_SYMBOLS, n)
+    sort = 2 * n - b + (WSORT_BYTES_PER_SYMBOL
+                        + SORT_COUNTER_BYTES_PER_SYMBOL) * b
+    folds = [_fold_bytes(n, n - 1, b)]
+    if n > fmd.FUSED_MAX:
+        folds.append(_fold_bytes(n, fmd.FUSED_MAX - 1, b))
+    return int(max(2 * n + 8 * seqs, sort, *folds))
+
+
+def build_bytes(n: int, n_seqs: int | None = None) -> int:
+    """`build`'s reckoned device peak for an n-symbol text of n_seqs
+    sequences: that of the builder blocked.device_bwt takes at n."""
+    from fermi_tpu_torch.construct import suffix_device
+
+    if n < suffix_device.MAX_TEXT:
+        return doubling_bytes(n)
+    return blocked_bytes(n, n_seqs)
+
+
+# Held back from the device's free memory: allocations outside the caching
+# allocator (kernel modules loaded at their first launch) and its rounding
+# of each array.
+DEVICE_RESERVE = 1 << 28
 
 
 def free_bytes(device: torch.device) -> int | None:
-    """The device's free memory (torch.cuda.mem_get_info), None off
-    CUDA."""
+    """The device memory this process can still allocate, None off CUDA:
+    the CUDA runtime's free bytes (torch.cuda.mem_get_info) and the caching
+    allocator's unused blocks (reserved less allocated), less
+    DEVICE_RESERVE."""
     if device.type != "cuda":
         return None
-    return int(torch.cuda.mem_get_info(device)[0])
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    return max(0, int(free) - DEVICE_RESERVE)
 
 
 def append_route(n_old: int, n_new: int,
@@ -260,6 +367,138 @@ def append_route(n_old: int, n_new: int,
     need = card_append_bytes(n_old, n_new)
     free = free_bytes(torch.device(device))
     return ("card" if free is None or need <= free else "stream"), need, free
+
+
+# `build`'s last route, reckoned device peak and free bytes; in the span
+# route the spans' symbols, the first span's seconds and device peaks
+# (bytes, on CUDA) by part, and each fold's route, reckoned peak, free
+# bytes, symbols, seconds and device peaks by part; for measurement.
+BUILD_STATS = {"route": None, "need": 0, "free": None, "spans": [],
+               "seconds": {}, "device_peak": {}, "folds": []}
+
+
+def build_route(n: int, device,
+                n_seqs: int | None = None) -> tuple[str, int, int | None]:
+    """`build`'s route for an n-symbol text of n_seqs sequences on
+    `device`: "card" when build_bytes fits the free memory (and always off
+    CUDA), else "spans".  Returns the route, the reckoned bytes and the
+    free bytes (None off CUDA).  Pure arithmetic: nothing is allocated on
+    the device."""
+    need = build_bytes(n, n_seqs)
+    free = free_bytes(torch.device(device))
+    route = "card" if free is None or need <= free else "spans"
+    BUILD_STATS.update(route=route, need=need, free=free, spans=[],
+                       seconds={}, device_peak={}, folds=[])
+    return route, need, free
+
+
+def _last_true(lo: int, hi: int, pred) -> int | None:
+    """The largest j in [lo, hi) with pred(j), for a pred true up to some
+    j and false after it; None when pred(lo) is false or the range is
+    empty."""
+    if lo >= hi or not pred(lo):
+        return None
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if pred(mid):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def span_cuts(text: np.ndarray, free: int,
+              paired: bool = True) -> list[tuple[int, int]]:
+    """The (start, end) symbol offsets of the spans `build` folds a text
+    in, left to right, each the largest whose build_bytes fits `free`.  A
+    span ends after a sentinel: after every second one when `paired`
+    (construct/suffix.build_text's fwd 0 rc 0 layout, so each read keeps
+    both strands in one span), after any one otherwise.  build_bytes
+    drops at suffix_device.MAX_TEXT (the blocked builder takes over from
+    prefix doubling), so spans at least that long are tried first.  A
+    span of one read is taken even when it does not fit."""
+    from fermi_tpu_torch.construct import suffix_device
+
+    unit = 2 if paired else 1
+    ends = (np.flatnonzero(np.asarray(text) == 0) + 1)[unit - 1::unit]
+    if ends.size == 0 or ends[-1] != text.size:
+        ends = np.append(ends, text.size)
+    cuts, lo, i = [], 0, 0
+    while i < ends.size:
+        def fits(j, lo=lo, i=i):
+            return build_bytes(int(ends[j]) - lo, unit * (j - i + 1)) <= free
+        wide = int(np.searchsorted(ends, lo + suffix_device.MAX_TEXT))
+        j = _last_true(wide, ends.size, fits)
+        if j is None:
+            j = _last_true(i, min(wide, ends.size), fits)
+        j = i if j is None else j
+        cuts.append((lo, int(ends[j])))
+        lo, i = int(ends[j]), j + 1
+    return cuts
+
+
+def append_fmd(old_fmd: str, text: np.ndarray, out: str, sbits: int = 3,
+               device=None, tag: str = "build") -> tuple[str, int, int | None]:
+    """`build -i`: the text appended to the index old_fmd and written to
+    out ("-": standard output) by the route append_route chooses from the
+    old .fmd's header and the free memory, printed on stderr before
+    anything is allocated on the device.  Returns append_route's
+    figures."""
+    n_old, n_seqs = fmd_counts(old_fmd)
+    route, need, free = append_route(n_old, text.size, device)
+    sys.stderr.write(
+        f"[M::{tag}] append {text.size} symbols to {n_old} ({n_seqs} "
+        f"sequences) by the {route} route: reckoned device peak {need} "
+        f"bytes, free {'-' if free is None else free}\n")
+    sys.stdout.flush()                  # the codec writes `-' to fd 1
+    append = fm_append_card if route == "card" else fm_append_streaming
+    append(old_fmd, text, out, sbits=sbits, device=device)
+    return route, need, free
+
+
+def fold_spans(text: np.ndarray, cuts, out: str, sbits: int = 3,
+               device=None, tag: str = "build") -> None:
+    """`build` of a text in the spans `cuts` (span_cuts): the first span's
+    BWT sorted by blocked.device_bwt and written as a temporary .fmd
+    beside `out` (in the temporary directory when out is "-"), each later
+    span appended to the index so far by append_fmd (`build -i`'s card or
+    streaming route), the last append written to `out`.  The temporaries
+    and the .fmd.blk record caches the streaming route builds beside them
+    are removed.  The bytes are those of the one-piece build."""
+    from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.construct import blocked
+
+    device = resolve_device(device)
+    secs, peak, folds = {}, {}, []
+    BUILD_STATS.update(spans=[hi - lo for lo, hi in cuts], seconds=secs,
+                       device_peak=peak, folds=folds)
+    part = _part_timer(device, secs, peak)
+    where = None if out == "-" else os.path.dirname(os.path.abspath(out))
+    with tempfile.TemporaryDirectory(prefix=".spans-", dir=where) as tmp:
+        acc = out if len(cuts) == 1 else os.path.join(tmp, "0.fmd")
+        lo, hi = cuts[0]
+        with part("sort"):
+            bwt = blocked.device_bwt(text[lo:hi], device)
+        with part("rle"):
+            runs = rld.Runs.from_bwt(bwt)
+        del bwt
+        sys.stdout.flush()
+        with part("dump"):
+            rld.write_fmd(runs, acc, sbits=sbits)
+        del runs
+        for k, (lo, hi) in enumerate(cuts[1:], 1):
+            dst = out if k == len(cuts) - 1 else os.path.join(tmp, f"{k}.fmd")
+            t0 = time.perf_counter()
+            route, need, free = append_fmd(acc, text[lo:hi], dst, sbits,
+                                           device, tag)
+            folds.append(dict(route=route, need=need, free=free,
+                              symbols=hi - lo,
+                              seconds=time.perf_counter() - t0,
+                              device_peak=dict(APPEND_STATS["device_peak"])))
+            for f in (acc, acc + ".blk"):
+                if os.path.exists(f):
+                    os.remove(f)
+            acc = dst
 
 
 def fm_append_card(old_fmd: str, new_text: np.ndarray, out_fmd: str,

@@ -72,9 +72,12 @@ def cmd_build(args):
     the old .fmd's header before anything is allocated, fits the device's
     free memory, else fermi_tpu's streaming route (the old index read off
     its .fmd.blk and its runs, never expanded); both give the same
-    bytes."""
+    bytes.  Without -i the index is built in one piece when its reckoned
+    device peak fits the free memory, else in the largest spans that fit,
+    folded by -i's routes; the same bytes."""
     import os
     from fermi_tpu_torch import resolve_device, rld
+    from fermi_tpu_torch.algos import merge as mg
     from fermi_tpu_torch.core import dna, fastx
     from fermi_tpu_torch.construct import blocked, suffix
 
@@ -92,24 +95,33 @@ def cmd_build(args):
     text = suffix.build_text(seqs, trim_palindrome=not args.no_trim_pal)
     t_text = time.perf_counter() - t0
     if args.append_to:
-        from fermi_tpu_torch.algos import merge as mg
-
-        n_old, n_seqs = mg.fmd_counts(args.append_to)
-        route, need, free = mg.append_route(n_old, text.size, device)
-        sys.stderr.write(
-            f"[M::build] append {text.size} symbols to {n_old} "
-            f"({n_seqs} sequences) by the {route} route: reckoned device "
-            f"peak {need} bytes, free {'-' if free is None else free}\n")
-        sys.stdout.flush()              # the codec writes `-' to fd 1
-        append = (mg.fm_append_card if route == "card"
-                  else mg.fm_append_streaming)
-        append(args.append_to, text, args.out, sbits=args.sbits,
-               device=device)
+        mg.append_fmd(args.append_to, text, args.out, args.sbits, device)
         mg.APPEND_STATS["seconds"]["encode_text"] = t_text
+        return 0
+    cuts = _build_route("build", text, 2 * len(seqs), True, device)
+    if cuts is not None:
+        mg.fold_spans(text, cuts, args.out, args.sbits, device)
         return 0
     bwt = blocked.device_bwt(text, device)
     rld.write_fmd(rld.Runs.from_bwt(bwt), args.out, sbits=args.sbits)
     return 0
+
+
+def _build_route(tag, text, n_seqs, paired, device):
+    """The route of a build of `text`, n_seqs sequences (merge.build_route),
+    printed on stderr before anything is allocated on the device: None for
+    the one-piece build, else the spans to fold (merge.span_cuts; `paired`:
+    the text holds each read's two strands side by side)."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    route, need, free = mg.build_route(text.size, device, n_seqs)
+    cuts = None if route == "card" else mg.span_cuts(text, free, paired)
+    how = "by the card route" if cuts is None else f"in {len(cuts)} spans"
+    sys.stderr.write(
+        f"[M::{tag}] {text.size} symbols ({n_seqs} sequences) {how}: "
+        f"reckoned device peak {need} bytes, free "
+        f"{'-' if free is None else free}\n")
+    return cuts
 
 
 def _add_unpack(sub):
@@ -887,6 +899,28 @@ def _rle6_bytes(runs) -> bytes:
     return b"RLE\x06" + body.astype(np.uint8).tobytes()
 
 
+def _sais_runs(frags, device):
+    """`ropebwt -a sais`: the runs of the strands' BWT, sorted on the
+    device in one piece, or in spans cut at any sentinel and folded as
+    `build` folds them (the text holds the strands one after another)
+    when the one piece does not fit."""
+    import os
+    import tempfile
+    from fermi_tpu_torch import rld
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.construct import blocked, suffix
+
+    text = suffix.build_text(frags, both_strands=False,
+                             trim_palindrome=False)
+    cuts = _build_route("ropebwt", text, len(frags), False, device)
+    if cuts is None:
+        return rld.Runs.from_bwt(blocked.device_bwt(text, device))
+    with tempfile.TemporaryDirectory() as tmp:
+        fmd = os.path.join(tmp, "sais.fmd")
+        mg.fold_spans(text, cuts, fmd, device=device, tag="ropebwt")
+        return rld.read_fmd(fmd)
+
+
 def cmd_ropebwt(args):
     """The multi-string BWT of the reads' strands by one of three
     interchangeable builders, which must agree bit for bit
@@ -900,16 +934,12 @@ def cmd_ropebwt(args):
                           not args.no_fwd, not args.no_rev)
     if args.algo == "bpr":
         from fermi_tpu_torch.construct.bprope import bpr_bwt
-        bwt = bpr_bwt(frags)
+        runs = rld.Runs.from_bwt(bpr_bwt(frags))
     elif args.algo == "bcr":
         from fermi_tpu_torch.construct.bcr_device import bcr_bwt_device
-        bwt = bcr_bwt_device(frags, device)
+        runs = rld.Runs.from_bwt(bcr_bwt_device(frags, device))
     else:
-        from fermi_tpu_torch.construct import blocked, suffix
-        bwt = blocked.device_bwt(
-            suffix.build_text(frags, both_strands=False,
-                              trim_palindrome=False), device)
-    runs = rld.Runs.from_bwt(bwt)
+        runs = _sais_runs(frags, device)
     if args.binary:
         data = _rle6_bytes(runs)
         if args.out == "-":

@@ -1014,3 +1014,42 @@ def test_sliced_restore_footprint(card, tmp_path):
          for k in ks])
     assert np.array_equal(idx.rank6(torch.from_numpy(ks).to(card)).cpu()
                           .numpy(), want)
+
+
+def test_build_in_spans_card(card, tmp_path):
+    """`build` on the card with a ballast tensor holding all but a third
+    of the text's reckoned one-piece peak: the card's own free memory
+    (merge.free_bytes) sends the build down the span route, its folds by
+    `build -i`'s routes, and the bytes are the one-piece build's."""
+    from fermi_tpu_torch.algos import merge as mg
+    from fermi_tpu_torch.cli.main import main
+
+    reads = random_reads(20_000, min_len=90, max_len=101, seed=81,
+                         with_genome=True, genome_len=200_000)
+    fa = str(tmp_path / "r.fa")
+    write_fasta(fa, reads)
+    one, spans = str(tmp_path / "one.fmd"), str(tmp_path / "spans.fmd")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert main(["build", "-fo", one, fa]) == 0
+    assert "by the card route" in err.getvalue()
+    torch.cuda.empty_cache()
+    goal = mg.BUILD_STATS["need"] // 3
+    ballast = torch.empty(mg.free_bytes(card) - goal, dtype=torch.uint8,
+                          device=card)
+    before = dict(rank_cuda.LAUNCHES)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert main(["build", "-fo", spans, fa]) == 0
+    del ballast
+    torch.cuda.empty_cache()
+    st = mg.BUILD_STATS
+    assert st["route"] == "spans" and len(st["spans"]) >= 3
+    assert st["free"] < st["need"]
+    assert f"in {len(st['spans'])} spans" in err.getvalue()
+    assert err.getvalue().count("[M::build] append") == len(st["spans"]) - 1
+    if any(f["route"] == "card" for f in st["folds"]):
+        assert rank_cuda.LAUNCHES["rank6_fused"] > before["rank6_fused"]
+    assert open(spans, "rb").read() == open(one, "rb").read()
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["one.fmd", "r.fa", "spans.fmd"]

@@ -76,6 +76,34 @@ def test_ropebwt_equals_fermi_tpu(fastq, fermi_out, tmp_path, algo, flags,
         assert got == want.read_bytes()
 
 
+@pytest.mark.parametrize("binary", [False, True], ids=["text", "rle6"])
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "".join(f) or "none")
+def test_ropebwt_sais_in_spans(fastq, fermi_out, tmp_path, monkeypatch,
+                               capsys, flags, binary):
+    """`ropebwt -a sais` with the free bytes at a third of the one-piece
+    sort's reckoned peak: the strands' text cut at sentinels into spans
+    folded by `build -i`'s routes, fermi_tpu's output."""
+    from fermi_tpu_torch.algos import merge as TM
+    from fermi_tpu_torch.cli.main import _ropebwt_frags
+    from fermi_tpu_torch.construct import suffix
+
+    text = suffix.build_text(
+        _ropebwt_frags(fastq, "-N" in flags, "-O" not in flags,
+                       "-F" not in flags, "-R" not in flags),
+        both_strands=False, trim_palindrome=False)
+    free = TM.build_bytes(text.size, int((text == 0).sum())) // 3
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+    path = tmp_path / "o"
+    assert tmain(["ropebwt", "-a", "sais", "--device", "cpu", *flags,
+                  *(["-b"] if binary else []), "-o", str(path),
+                  fastq]) == 0
+    err = capsys.readouterr().err
+    spans = len(TM.span_cuts(text, free, paired=False))
+    assert spans > 2 and f"in {spans} spans" in err
+    assert err.count("[M::ropebwt] append") == spans - 1
+    assert path.read_bytes() == fermi_out[tuple(flags), binary]
+
+
 def test_ropebwt_to_stdout(fastq, fermi_out, capsysbinary):
     assert tmain(["ropebwt", "-b", fastq]) == 0
     assert capsysbinary.readouterr().out == fermi_out[(), True]

@@ -561,7 +561,10 @@ def test_append_route_decision(monkeypatch):
 def test_append_reckons_the_restored_layouts(pair, monkeypatch, domain):
     """card_append_bytes is the old index's arrays as a restore lays them
     out and the new block's as from_bwt does (fused rows or not, int32 or
-    int64), 2 B a merged symbol, and the chunk temporaries."""
+    int64), 2 B a merged symbol, and the chunk temporaries: a restore
+    slice of the larger index's rows (fewer than a RESTORE_CHUNK here)
+    and an interleave chunk of the merged symbols (fewer than a
+    MERGE_CHUNK)."""
     _append_domain(monkeypatch, domain)
     e0 = FMDIndex.restore(pair["paths"][0], "cpu")
     e1 = FMDIndex.from_bwt(pair["b1"], "cpu")
@@ -573,8 +576,10 @@ def test_append_reckons_the_restored_layouts(pair, monkeypatch, domain):
     n0, n1 = e0.total, e1.total
     assert TM.index_layout_bytes(n0) == layout(e0)
     assert TM.index_layout_bytes(n1) == layout(e1)
-    temps = (TM.RESTORE_SLICE_BYTES_PER_SYMBOL * tfmd.RESTORE_CHUNK
-             + TM.MERGE_CHUNK_BYTES_PER_SYMBOL * TM.MERGE_CHUNK)
+    rows = max(e0.bwt_blocks.shape[0], e1.bwt_blocks.shape[0])
+    assert rows * 128 < tfmd.RESTORE_CHUNK and n0 + n1 < TM.MERGE_CHUNK
+    temps = (TM.RESTORE_SLICE_BYTES_PER_SYMBOL * rows * 128
+             + TM.MERGE_CHUNK_BYTES_PER_SYMBOL * (n0 + n1))
     assert TM.card_append_bytes(n0, n1) == \
         layout(e0) + layout(e1) + 2 * (n0 + n1) + temps
 
@@ -631,6 +636,228 @@ def test_appended_index_oracles(pair, tmp_path, monkeypatch, route):
     ea, m = (FMDIndex.restore(p, "cpu") for p in (old, app))
     eb = FMDIndex.from_bwt(pair["b1"], "cpu")
     _held_to_its_blocks(pair, ea, eb, m, against_fermi_tpu=False)
+
+
+# -- build in spans ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def all_reads(pair, tmp_path_factory):
+    """a's and b's reads as one FASTA, the port's text of them and
+    fermi_tpu's `build` of them."""
+    from fermi_tpu_torch.construct import suffix as tsuffix
+    from fermi_tpu_torch.core import dna
+
+    d = tmp_path_factory.mktemp("spans")
+    reads = pair["r0"] + pair["r1"]
+    fa, jout = str(d / "all.fa"), str(d / "j.fmd")
+    write_fasta(fa, reads)
+    assert jmain(["build", "-fo", jout, fa]) == 0
+    text = tsuffix.build_text([dna.encode(r) for r in reads])
+    return dict(fa=fa, text=text, want=open(jout, "rb").read())
+
+
+def _span_lines(text, free):
+    """The route lines `build` of `text` prints at `free` bytes: the
+    route, then each fold's `build -i` line."""
+    seqs = np.cumsum(text == 0)
+    n_seqs = int(seqs[-1])
+    need = TM.build_bytes(text.size, n_seqs)
+    head = f"[M::build] {text.size} symbols ({n_seqs} sequences) "
+    if need <= free:
+        return [head + f"by the card route: reckoned device peak {need} "
+                f"bytes, free {free}"]
+    cuts = TM.span_cuts(text, free)
+    lines = [head + f"in {len(cuts)} spans: reckoned device peak {need} "
+             f"bytes, free {free}"]
+    for lo, hi in cuts[1:]:
+        fold = TM.card_append_bytes(lo, hi - lo)
+        route = "card" if fold <= free else "stream"
+        lines.append(f"[M::build] append {hi - lo} symbols to {lo} "
+                     f"({int(seqs[lo - 1])} sequences) by the {route} "
+                     f"route: reckoned device peak {fold} bytes, free {free}")
+    return lines
+
+
+def _span_figure(text, figure):
+    """The free-byte figure of a case: the one-piece build's reckoned
+    peak ("card"), or the largest whole percent of it below whose spans
+    all fold by the card route ("spans_card") or at least one by the
+    streaming route ("spans_stream")."""
+    need = TM.build_bytes(text.size, int(np.count_nonzero(text == 0)))
+    if figure == "card":
+        return need
+    for pct in range(99, 0, -1):
+        free = need * pct // 100
+        routes = [line.split(" by the ")[1].split()[0]
+                  for line in _span_lines(text, free)[1:]]
+        if routes and (figure == "spans_card") == ("stream" not in routes):
+            return free
+    raise AssertionError(f"no figure gives {figure}")
+
+
+def _route_lines(err):
+    return [ln for ln in err.splitlines() if ln.startswith("[M::build]")]
+
+
+@pytest.mark.parametrize("figure", ["card", "spans_card", "spans_stream"])
+@pytest.mark.parametrize("domain", APPEND_DOMAINS)
+def test_cli_build_in_spans(all_reads, tmp_path, monkeypatch, capsys,
+                            domain, figure):
+    """`build` with the free bytes at the one-piece build's reckoned peak
+    takes the card route; below it the text is cut into the largest spans
+    that fit and folded by `build -i`'s routes (all by the card route, or
+    at least one by the streaming route), each fold's line on stderr.
+    fermi_tpu's `build` bytes and the port's one-piece build's, and no
+    temporary or .fmd.blk left beside the output."""
+    _append_domain(monkeypatch, domain)
+    text = all_reads["text"]
+    one = str(tmp_path / "one.fmd")
+    assert tmain(["build", "--device", "cpu", "-fo", one,
+                  all_reads["fa"]]) == 0
+    free = _span_figure(text, figure)
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+    out = str(tmp_path / "out.fmd")
+    capsys.readouterr()
+    assert tmain(["build", "--device", "cpu", "-fo", out,
+                  all_reads["fa"]]) == 0
+    lines = _route_lines(capsys.readouterr().err)
+    assert lines == _span_lines(text, free)
+    assert (len(lines) == 1) == (figure == "card")
+    assert ("stream route" in "".join(lines)) == (figure == "spans_stream")
+    assert TM.BUILD_STATS["route"] == ("card" if figure == "card"
+                                       else "spans")
+    assert open(out, "rb").read() == open(one, "rb").read() == \
+        all_reads["want"]
+    assert sorted(os.listdir(tmp_path)) == ["one.fmd", "out.fmd"]
+
+
+@pytest.mark.parametrize("figure", ["spans_card", "spans_stream"])
+@pytest.mark.parametrize("domain", APPEND_DOMAINS)
+def test_cli_build_in_spans_to_stdout(all_reads, tmp_path, monkeypatch,
+                                      capfdbinary, domain, figure):
+    """`build -o -` in spans writes fermi_tpu's bytes to file descriptor
+    1; its temporaries, in the temporary directory, are removed."""
+    import tempfile
+
+    _append_domain(monkeypatch, domain)
+    free = _span_figure(all_reads["text"], figure)
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp))
+    assert tmain(["build", "--device", "cpu", all_reads["fa"]]) == 0
+    got = capfdbinary.readouterr()
+    assert got.out == all_reads["want"]
+    assert _route_lines(got.err.decode()) == \
+        _span_lines(all_reads["text"], free)
+    assert os.listdir(tmp) == []
+
+
+@pytest.mark.parametrize("domain", APPEND_DOMAINS)
+def test_build_reckons_the_fold_layouts(pair, all_reads, monkeypatch,
+                                        domain):
+    """The layout terms of blocked_bytes' folds are the arrays a blocked
+    build allocates: each fold's accumulated and block indexes
+    (index_layout_bytes of their symbols), its gap bits and merged BWT (1
+    B a merged symbol each); every fold's reckoning holds them."""
+    from fermi_tpu_torch.construct import blocked
+
+    _append_domain(monkeypatch, domain)
+    text = all_reads["text"]
+    blk = text.size // 4
+    folds = []
+    walk, interleave = TM.compute_gap_bits, TM.merge_bwts
+
+    def layout(e):
+        return sum(a.numel() * a.element_size() for a in (
+            e.bwt_blocks, e.occ, e.bwt_packed, e.fused) if a is not None)
+
+    def spy_walk(e0, e1, **kw):
+        bits = walk(e0, e1, **kw)
+        folds.append(dict(m=e0.total, b=e1.total, acc=layout(e0),
+                          blk=layout(e1), bits=bits.numel(),
+                          fused=e0.fused is not None))
+        return bits
+
+    def spy_interleave(b0, b1, bits, **kw):
+        out = interleave(b0, b1, bits, **kw)
+        folds[-1]["merged"] = out.numel() * out.element_size()
+        return out
+    monkeypatch.setattr(TM, "compute_gap_bits", spy_walk)
+    monkeypatch.setattr(TM, "merge_bwts", spy_interleave)
+    got = blocked.device_build_text(text, block_symbols=blk, device="cpu")
+    assert np.array_equal(got, _bwt(pair["paths"][2]))
+    assert len(folds) >= 3
+    for f in folds:
+        t = f["m"] + f["b"]
+        assert f["acc"] == TM.index_layout_bytes(f["m"])
+        assert f["blk"] == TM.index_layout_bytes(f["b"])
+        assert f["bits"] == f["merged"] == t
+        assert f["fused"] == (domain == "default")
+        assert TM._fold_bytes(text.size, f["m"], f["b"]) >= \
+            text.size + t + f["acc"] + f["blk"] + f["bits"]
+
+
+@pytest.mark.parametrize("pct", [60, 30, 10])
+def test_span_cuts_keep_reads_whole(pair, pct):
+    """span_cuts cuts a text into contiguous spans, each the largest that
+    fits the free bytes (or a single read): in `build`'s text only after a
+    read's reverse complement, so every span holds an even number of
+    sequences, a palindrome trimmed by 1 bp included; in a text of
+    strands, after any sentinel."""
+    from fermi_tpu_torch.construct import suffix as tsuffix
+    from fermi_tpu_torch.core import dna
+
+    reads = pair["r0"] + ["ACGTACGT", "GGATCC"] + pair["r1"]
+    text = tsuffix.build_text([dna.encode(r) for r in reads])
+    assert text.size == sum(2 * len(r) + 2 for r in reads) - 4
+    before = np.concatenate([[0], np.cumsum(text == 0)])
+    free = TM.build_bytes(text.size, int(before[-1])) * pct // 100
+    for unit in (2, 1):
+        cuts = TM.span_cuts(text, free, paired=unit == 2)
+        assert cuts[0][0] == 0 and cuts[-1][1] == text.size
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+        ends = np.flatnonzero(text == 0)[unit - 1::unit] + 1
+        for lo, hi in cuts:
+            seqs = int(before[hi] - before[lo])
+            assert text[hi - 1] == 0 and before[hi] % unit == 0
+            assert TM.build_bytes(hi - lo, seqs) <= free or seqs == unit
+            if hi < text.size:
+                nxt = int(ends[np.searchsorted(ends, hi) + 1])
+                assert TM.build_bytes(nxt - lo, seqs + unit) > free
+        assert len(cuts) > 1
+
+
+def test_build_route_decision(monkeypatch):
+    """`build`'s route by the free bytes: the card route at the reckoned
+    peak and off CUDA, spans one byte below.  Prefix doubling's 49.5 B a
+    symbol up to MAX_TEXT, then the blocked builder's far smaller peak;
+    past FUSED_MAX its last fold onto fused rows sets it, until the last
+    fold onto unfused rows is larger.  On an 80 GB card's free memory the
+    one piece takes 1.5 Gsym, not 2.0 (in spans), 2^31 and 15 Gsym, not
+    2^35."""
+    from fermi_tpu_torch.construct import blocked, suffix_device
+
+    n, seqs = 63_176_712, 625_512
+    need = TM.build_bytes(n, seqs)
+    assert need == TM.doubling_bytes(n) == int(49.5 * n)
+    for free, route in ((need, "card"), (need - 1, "spans"),
+                        (None, "card")):
+        monkeypatch.setattr(TM, "free_bytes", lambda dev: free)
+        assert TM.build_route(n, "cpu", seqs) == (route, need, free)
+    top = suffix_device.MAX_TEXT
+    assert TM.build_bytes(top - 1) == TM.doubling_bytes(top - 1) > 10**11
+    assert TM.build_bytes(top, top // 101) < 16 * 10**9
+    b = blocked.BLOCK_SYMBOLS
+    for n, m in ((4_524_800_000, tfmd.FUSED_MAX - 1),
+                 (20_000_000_000, 20_000_000_000 - 1)):
+        assert TM.blocked_bytes(n, n // 101) == TM._fold_bytes(n, m, b)
+    monkeypatch.setattr(TM, "free_bytes", lambda dev: 79 * 10**9)
+    for n, route in ((1_500_000_000, "card"), (2_000_000_000, "spans"),
+                     (2**31, "card"), (15_000_000_000, "card"),
+                     (2**35, "spans")):
+        assert TM.build_route(n, "cuda", n // 101)[0] == route
 
 
 @pytest.mark.parametrize("comp", [[], ["-c"]])
