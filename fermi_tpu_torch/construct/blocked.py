@@ -18,12 +18,10 @@ its own integer domain, so the accumulated index may pass 2^31 symbols
 while its blocks stay int32.
 """
 
-import time
-
 import numpy as np
 import torch
 
-from fermi_tpu_torch import resolve_device
+from fermi_tpu_torch import resolve_device, spans
 from fermi_tpu_torch.algos import merge as mg
 from fermi_tpu_torch.construct import wsort
 from fermi_tpu_torch.index.fmd import FMDIndex
@@ -31,8 +29,9 @@ from fermi_tpu_torch.index.fmd import FMDIndex
 BLOCK_SYMBOLS = 40 << 20
 
 # Counters of the last build, for measurement (the chip smoke test reads
-# them): blocks, seconds sorting, seconds merging (index rebuilds
-# included), walk steps of the merges.
+# them): blocks, seconds sorting and seconds merging (index rebuilds
+# included), the sums of its `bwt/block_sort` and `bwt/fold` spans, and
+# walk steps of the merges.
 STATS = {"blocks": 0, "sort_s": 0.0, "merge_s": 0.0, "merge_steps": 0}
 
 
@@ -77,7 +76,8 @@ def device_build_text(text: np.ndarray, block_symbols: int = BLOCK_SYMBOLS,
         return np.zeros(0, np.uint8)
     if text[-1] != 0:
         raise ValueError("text must end with a sentinel")
-    t = torch.from_numpy(text).to(dev)
+    with spans.span("bwt/upload"):
+        t = torch.from_numpy(text).to(dev)
     ends = torch.nonzero(t == 0)[:, 0].cpu().numpy()
     lens = np.diff(ends, prepend=-1) - 1
     max_len = int(lens.max())
@@ -85,27 +85,31 @@ def device_build_text(text: np.ndarray, block_symbols: int = BLOCK_SYMBOLS,
     blocks = _block_slices(lens, block_symbols)
     STATS["blocks"] = len(blocks)
     acc = None
+    # each block's sort and fold ends in a synchronize, so the one that
+    # follows starts with the device idle
     for bi, (lo, hi) in enumerate(blocks):
-        t0 = _sync_clock(dev)
-        bwt = wsort._wsort_text(t[starts[lo]: starts[hi]], max_len)
-        t1 = _sync_clock(dev)
-        STATS["sort_s"] += t1 - t0
+        with spans.span("bwt/block_sort") as sp:
+            bwt = wsort._wsort_text(t[starts[lo]: starts[hi]], max_len)
+            _sync(dev)
+        STATS["sort_s"] += sp.seconds
         if acc is None:
             acc = bwt
             continue
-        bits = mg.compute_gap_bits(FMDIndex._from_symbols(acc),
-                                   FMDIndex._from_symbols(bwt))
-        STATS["merge_steps"] += mg.STATS["steps"]
-        acc = mg.merge_bwts(acc, bwt, bits)
-        del bits
-        STATS["merge_s"] += _sync_clock(dev) - t1
-    return acc.cpu().numpy()
+        with spans.span("bwt/fold") as sp:
+            bits = mg.compute_gap_bits(FMDIndex._from_symbols(acc),
+                                       FMDIndex._from_symbols(bwt))
+            STATS["merge_steps"] += mg.STATS["steps"]
+            acc = mg.merge_bwts(acc, bwt, bits)
+            del bits
+            _sync(dev)
+        STATS["merge_s"] += sp.seconds
+    with spans.span("bwt/download"):
+        return acc.cpu().numpy()
 
 
-def _sync_clock(dev) -> float:
+def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return time.perf_counter()
 
 
 def device_bwt(text: np.ndarray, device=None) -> np.ndarray:

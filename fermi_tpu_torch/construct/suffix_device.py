@@ -13,7 +13,7 @@ rank * (max_rank + 2) + next-rank + 1, which fits while n < 2^31.
 import numpy as np
 import torch
 
-from fermi_tpu_torch import resolve_device
+from fermi_tpu_torch import resolve_device, spans
 
 MAX_TEXT = 2**31 - 8
 
@@ -30,7 +30,8 @@ def multistring_bwt_device(text: np.ndarray, device=None) -> np.ndarray:
             f"text of {n} symbols: the packed sort key needs n < 2^31; "
             "construct.blocked.device_bwt is the entry for texts of any "
             "length")
-    t = torch.from_numpy(text).to(dev)
+    with spans.span("bwt/upload"):
+        t = torch.from_numpy(text).to(dev)
     i64 = torch.int64
     is_sent = t == 0
     n_sent = int(is_sent.sum())
@@ -39,30 +40,38 @@ def multistring_bwt_device(text: np.ndarray, device=None) -> np.ndarray:
     del is_sent
     # rounds needed = ceil(log2(longest suffix comparison)) <= ceil(log2(n))
     max_iters = max(1, int(np.ceil(np.log2(n))))
+    top = int(rank.max())
     for it in range(max_iters):
-        top = int(rank.max())
         if top == n - 1:
             break
-        h = 1 << it
-        # next-rank + 1 lies in [0, top + 1] (0 past the end of the text)
-        key = rank * (top + 2)
-        key[: n - h] += rank[h:] + 1
-        del rank
-        # trouble spot: at ~3e8 symbols a round holds the key, the sorted
-        # keys and the order (int64 each); the previous round's arrays are
-        # freed before the sort
-        sk, order = torch.sort(key, stable=True)
-        del key
-        changed = torch.zeros(n, dtype=i64, device=dev)
-        changed[1:] = sk[1:] != sk[:-1]
-        del sk
-        new_sorted = torch.cumsum(changed, 0)
-        del changed
-        rank = torch.empty(n, dtype=i64, device=dev)
-        rank[order] = new_sorted
-        del order, new_sorted
+        # a round's span ends where the host waits for its ranks anyway
+        with spans.span("bwt/round"):
+            h = 1 << it
+            # next-rank + 1 lies in [0, top + 1] (0 past the end of the text)
+            key = rank * (top + 2)
+            key[: n - h] += rank[h:] + 1
+            del rank
+            # trouble spot: at ~3e8 symbols a round holds the key, the
+            # sorted keys and the order (int64 each); the previous round's
+            # arrays are freed before the sort
+            sk, order = torch.sort(key, stable=True)
+            del key
+            changed = torch.zeros(n, dtype=i64, device=dev)
+            changed[1:] = sk[1:] != sk[:-1]
+            del sk
+            new_sorted = torch.cumsum(changed, 0)
+            del changed
+            rank = torch.empty(n, dtype=i64, device=dev)
+            rank[order] = new_sorted
+            del order, new_sorted
+            top = int(rank.max())
     sa = torch.empty(n, dtype=i64, device=dev)
     sa[rank] = torch.arange(n, dtype=i64, device=dev)
     del rank
     bwt = torch.where(sa > 0, t[(sa - 1).clamp(min=0)], 0).to(torch.uint8)
-    return bwt.cpu().numpy()
+    if dev.type == "cuda":
+        # the download below waits for this work anyway: the wait is the
+        # gather's, not the copy's
+        torch.cuda.synchronize(dev)
+    with spans.span("bwt/download"):
+        return bwt.cpu().numpy()

@@ -32,12 +32,13 @@ import time
 
 import numpy as np
 
-from fermi_tpu_torch import native, resolve_device
+from fermi_tpu_torch import native, resolve_device, spans
 
 
 # Seconds by part of the last index build (_build_from_frags), for
-# measurement (the chip smoke test reads them): the read encoders, the
-# text, the device BWT, its run-length encoding and the .fmd dump.
+# measurement (the chip smoke test and the benchmark read them): the
+# durations of its spans `frags` (the read encoders), `text`, `bwt` (the
+# device BWT), `rle` (its run-length encoding) and `dump` (the .fmd).
 BUILD_STATS = {}
 
 
@@ -206,49 +207,54 @@ class Pipeline:
             raise MemoryError("fencode_frags: out of memory")
         return Pipeline._take(lib, pF, pO, nfrag)
 
-    def _build_from_frags(self, F, offs, out_fmd, t0):
+    def _build_from_frags(self, F, offs, out_fmd, frags):
         """The index of forward-only nt6 fragments: the text (each
         fragment and its reverse complement), its BWT on the device, the
-        .fmd dump."""
+        .fmd dump.  `frags` is the closed span that made the fragments;
+        BUILD_STATS gets its seconds and those of the text, bwt, rle and
+        dump spans opened here."""
         from fermi_tpu_torch import rld
         from fermi_tpu_torch.construct import blocked, suffix
 
         nfrag = len(offs) - 1
-        t_text = time.time()
-        text = suffix.build_text_packed(F, offs)
-        n_sym = int(text.size)
+        with spans.span("text") as text_sp:
+            text = suffix.build_text_packed(F, offs)
+            n_sym = int(text.size)
         log("build", f"{nfrag} fragments, {n_sym / 1e6:.1f}M "
             f"symbols on {self.device}")
-        t_sort = time.time()
-        bwt = blocked.device_bwt(text, self.device)
+        with spans.span("bwt") as bwt_sp:
+            bwt = blocked.device_bwt(text, self.device)
         del text
-        t_rle = time.time()
-        runs = rld.Runs.from_bwt(bwt)
+        with spans.span("rle") as rle_sp:
+            runs = rld.Runs.from_bwt(bwt)
         del bwt
-        t_dump = time.time()
-        rld.write_fmd(runs, out_fmd)
+        with spans.span("dump") as dump_sp:
+            rld.write_fmd(runs, out_fmd)
         self._cache[("runs", out_fmd)] = runs
-        BUILD_STATS.update(
-            fragments=nfrag, symbols=n_sym, frags_s=t_text - t0,
-            text_s=t_sort - t_text, bwt_s=t_rle - t_sort,
-            rle_s=t_dump - t_rle, dump_s=time.time() - t_dump)
-        log("build", f"wrote {out_fmd} in {time.time() - t0:.1f}s "
-            f"(frags {t_text - t0:.1f}, text {t_sort - t_text:.1f}, "
-            f"bwt {t_rle - t_sort:.1f}, rle {t_dump - t_rle:.1f}, "
-            f"dump {time.time() - t_dump:.1f})")
+        parts = {"frags": frags, "text": text_sp, "bwt": bwt_sp,
+                 "rle": rle_sp, "dump": dump_sp}
+        BUILD_STATS.update(fragments=nfrag, symbols=n_sym, **{
+            f"{k}_s": sp.seconds for k, sp in parts.items()})
+        total = (dump_sp.end_ns - frags.start_ns) / 1e9
+        log("build", f"wrote {out_fmd} in {total:.1f}s (" + ", ".join(
+            f"{k} {sp.seconds:.1f}" for k, sp in parts.items()) + ")")
 
     def build_index(self, reads_iter, out_fmd, paths=None):
         """raw/ec FMD-index (the reference's `ropebwt -a bcr -N` stage):
         plain FASTQ through the native encoders, any other input record by
         record; reads are split at every non-ACGT base either way."""
+        with spans.span("build_index"):
+            with spans.span("frags") as frags:
+                fo = None if paths is None else self._frags_from_fastq(paths)
+                if fo is None:
+                    fo = self._frags_from_reads(reads_iter)
+            self._build_from_frags(*fo, out_fmd, frags)
+
+    @staticmethod
+    def _frags_from_reads(reads_iter):
+        """(F, offsets) forward-only nt6 fragments of reads as strings."""
         from fermi_tpu_torch.core import dna
 
-        t0 = time.time()
-        if paths is not None:
-            fo = self._frags_from_fastq(paths)
-            if fo is not None:
-                self._build_from_frags(*fo, out_fmd, t0)
-                return
         # join reads with N: encode maps it to 5, and fragments are maximal
         # runs of non-5 symbols, so one vectorized pass splits them
         enc = dna.encode("N".join(reads_iter))
@@ -256,8 +262,7 @@ class Pipeline:
         edge = np.diff(ok.view(np.int8), prepend=np.int8(0),
                        append=np.int8(0))
         lens = np.flatnonzero(edge == -1) - np.flatnonzero(edge == 1)
-        offsets = np.concatenate([[0], np.cumsum(lens)])
-        self._build_from_frags(enc[ok], offsets, out_fmd, t0)
+        return enc[ok], np.concatenate([[0], np.cumsum(lens)])
 
     # -- stages ------------------------------------------------------------
 
@@ -297,16 +302,17 @@ class Pipeline:
         from fermi_tpu_torch.core import fastx
 
         src = self._p("ec.fq.gz")
-        t0 = time.time()
         # fltuniq keep flags -> kept reads' spans -> fragments -> build,
         # without writing the filtered FASTQ (the same fragments as the
         # flt.fq round trip: the same spans, the same encoder)
-        spans = su.fltuniq_kept_seq_spans(src)
-        if spans is not None:
-            fo = self._encode_spans(*spans)
-            log("ec_fmd", f"fltuniq: kept {len(spans[1])} reads "
-                f"in {time.time() - t0:.1f}s")
-            self._build_from_frags(*fo, out, t0)
+        with spans.span("frags") as frags:
+            kept = su.fltuniq_kept_seq_spans(src)
+            if kept is not None:
+                fo = self._encode_spans(*kept)
+                log("ec_fmd", f"fltuniq: kept {len(kept[1])} reads in "
+                    f"{(time.time_ns() - frags.start_ns) / 1e9:.1f}s")
+        if kept is not None:
+            self._build_from_frags(*fo, out, frags)
             return
         flt = self._p("flt.fq")
         with open(flt, "w") as fp:

@@ -6,11 +6,12 @@ reference rld.c:47-263 (format only; fresh implementation).
 """
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
-from fermi_tpu_torch import native
+from fermi_tpu_torch import native, spans
 
 
 @dataclass
@@ -50,30 +51,42 @@ class Runs:
         # the BWT's length beside it
         bwt = np.ascontiguousarray(bwt)
         lib = native.get_lib()
-        n_runs = lib.frle_count(bwt.ctypes.data, bwt.size)
-        symbols = np.empty(n_runs, np.uint8)
-        lengths = np.empty(n_runs, np.int64)
-        lib.frle_from_bwt(bwt.ctypes.data, bwt.size, symbols.ctypes.data,
-                          lengths.ctypes.data)
-        mcnt = np.zeros(asize + 1, np.uint64)
-        # the float sums are exact below 2^53
-        mcnt[1:] = np.bincount(symbols, weights=lengths,
-                               minlength=asize)[:asize].astype(np.uint64)
-        mcnt[0] = bwt.size
+        with spans.span("rle/count"):
+            n_runs = lib.frle_count(bwt.ctypes.data, bwt.size)
+        with spans.span("rle/fill"):
+            symbols = np.empty(n_runs, np.uint8)
+            lengths = np.empty(n_runs, np.int64)
+            lib.frle_from_bwt(bwt.ctypes.data, bwt.size, symbols.ctypes.data,
+                              lengths.ctypes.data)
+        with spans.span("rle/mcnt"):
+            mcnt = np.zeros(asize + 1, np.uint64)
+            # the float sums are exact below 2^53
+            mcnt[1:] = np.bincount(symbols, weights=lengths,
+                                   minlength=asize)[:asize].astype(np.uint64)
+            mcnt[0] = bwt.size
         return Runs(lengths, symbols, mcnt, asize)
 
 
 def write_fmd(runs: Runs, path: str, sbits: int = 3) -> None:
-    """Write runs as an RLD\\2 .fmd file, byte-identical to reference rld_dump."""
+    """Write runs as an RLD\\2 .fmd file, byte-identical to reference
+    rld_dump: the streaming encoder's puts of every run (`dump/encode`),
+    then its last block, frame and file (`dump/write`)."""
     lib = native.get_lib()
     lengths = np.ascontiguousarray(runs.lengths, dtype=np.int64)
     symbols = np.ascontiguousarray(runs.symbols, dtype=np.uint8)
-    rc = lib.frld_encode_file(
-        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        symbols.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        len(lengths), runs.asize, sbits, path.encode())
+    with spans.span("dump/encode"):
+        h = lib.frld_enc_open(runs.asize, sbits)
+        if not h:
+            raise MemoryError("frld_enc_open: out of memory")
+        rc = lib.frld_enc_put(h, lengths.ctypes.data, symbols.ctypes.data,
+                              len(lengths))
     if rc != 0:
-        raise IOError(f"frld_encode_file({path}) failed: {rc}")
+        lib.frld_enc_finish(h, os.devnull.encode())   # frees the encoder
+        raise MemoryError(f"frld_enc_put({path}): out of memory")
+    with spans.span("dump/write"):
+        rc = lib.frld_enc_finish(h, path.encode())
+    if rc != 0:
+        raise IOError(f"frld_enc_finish({path}) failed: {rc}")
 
 
 def read_fmd(path: str) -> Runs:

@@ -1053,3 +1053,64 @@ def test_build_in_spans_card(card, tmp_path):
     assert open(spans, "rb").read() == open(one, "rb").read()
     assert sorted(p.name for p in tmp_path.iterdir()) == \
         ["one.fmd", "r.fa", "spans.fmd"]
+
+
+def test_spans_share_the_device_clock(card, tmp_path):
+    """Under the profiler, a build_index of about 20 Msym: each sort of
+    the doubling rounds runs inside its `bwt/round` span, the text's copy
+    inside `bwt/upload` and the BWT's inside `bwt/download`, within 1 ms
+    on the device records' clock.  The device builder and the run-length
+    encoder synchronize only where the recorder allows it."""
+    import inspect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fermi_tpu_torch import rld, spans
+    from fermi_tpu_torch.construct import suffix_device
+    from fermi_tpu_torch.pipeline import driver
+
+    src = inspect.getsource(suffix_device).splitlines()
+    at = [i for i, ln in enumerate(src) if "torch.cuda.synchronize" in ln]
+    assert len(at) == 1
+    after = [ln for ln in src[at[0] + 1:] if ln.strip()][:2]
+    assert "bwt/download" in after[0] and ".cpu()" in after[1]
+    assert "torch.cuda.synchronize" not in inspect.getsource(rld)
+
+    reads = random_reads(100_000, min_len=100, max_len=101, seed=97)
+    fq = str(tmp_path / "r.fq")
+    write_fastq(fq, reads)
+    out = str(tmp_path / "o.fmd")
+    p = driver.Pipeline(str(tmp_path / "x"), device=card)
+    with contextlib.redirect_stderr(io.StringIO()):
+        p.build_index(iter(()), out, paths=[fq])    # builds and warms up
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p.build_index(iter(()), out, paths=[fq])
+    assert driver.BUILD_STATS["symbols"] > 20_000_000
+    recs = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    rows = spans.rows()
+    ms = 1_000_000
+
+    def inside(rec, sp):
+        return sp.start_ns - ms <= rec[1] and rec[2] <= sp.end_ns + ms
+
+    rounds = [r for r in rows if r.name == "bwt/round"]
+    sorts = [r for r in recs if "RadixSort" in r[0]]
+    assert len(rounds) >= 5 and sorts
+    def overlap(rec, sp):
+        return min(rec[2], sp.end_ns) - max(rec[1], sp.start_ns)
+
+    owners = set()
+    for rec in sorts:
+        own = max(rounds, key=lambda r: overlap(rec, r))
+        assert inside(rec, own), (rec, own)
+        owners.add(own.index)
+    assert owners == {r.index for r in rounds}
+    for name, kind in (("bwt/upload", "HtoD"), ("bwt/download", "DtoH")):
+        sp, = [r for r in rows if r.name == name]
+        big = max((r for r in recs if kind in r[0]),
+                  key=lambda r: r[2] - r[1])
+        assert inside(big, sp), (name, big, sp)
