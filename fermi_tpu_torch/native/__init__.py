@@ -168,9 +168,11 @@ _SIGNATURES = {
                                   ctypes.POINTER(ctypes.c_uint64),
                                   ctypes.POINTER(ctypes.c_int)]),
         "frld_free": (None, [_P]),
-        # frle_count(bwt, n) -> runs; frle_from_bwt(bwt, n, syms, lens)
-        "frle_count": (_I64, [_P, _I64]),
-        "frle_from_bwt": (_I64, [_P, _I64, _P, _P]),
+        # frle_count(bwt, n, n_threads, first int64[n_threads]) -> runs / -9
+        "frle_count": (_I64, [_P, _I64, _I, _P]),
+        # frle_fill(bwt, n, n_threads, first, syms, lens, asize,
+        #           counts uint64[n_threads, asize]) -> 0 / -9
+        "frle_fill": (_I, [_P, _I64, _I, _P, _P, _P, _I, _P]),
         "frld_enc_open": (_P, [_I, _I]),
         # frld_enc_put(h, run_len, run_sym, n_runs) -> 0 / -9 memory
         "frld_enc_put": (_I, [_P, _P, _P, _I64]),

@@ -23,6 +23,8 @@
 //   fmblk_build / fmblk_info: the .fmd.blk record cache (fmindex.h)
 //   fappend_gaps / fappend_sort / fappend_interleave: build -i without
 //     expanding the old index
+//   frle_count / frle_fill: the runs of a BWT and their symbol counts, on
+//     threads
 //
 // Runs passed in may contain adjacent equal symbols; they are merged exactly as
 // rld_enc() would (pending-run merging), so any run decomposition of the same
@@ -575,6 +577,114 @@ static void fmblk_locate(const FmmapIndex* e, uint64_t s, uint64_t* off_out,
   for (int j = 0; j < e->asize; ++j) cnt_out[j] = cnt[j];
 }
 
+// ---------------------------------------------------------------------------
+// Run-length encoding of a BWT on threads (frle_count, frle_fill): the BWT is
+// cut into n_threads contiguous chunks, position i starts a run when i == 0
+// or bwt[i] != bwt[i-1], and each chunk owns the runs that start in it.
+// Run starts are found 64 positions at a time, as a bit mask, so the loops
+// branch once a run and once per 64 symbols, not on every symbol.
+// ---------------------------------------------------------------------------
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "start_mask64 reads byte q of a word as bwt[q]");
+
+// First position of chunk t of T over n symbols; chunk T begins at n.
+inline int64_t rle_chunk_begin(int64_t n, int T, int t) {
+  return t * (n / T) + std::min<int64_t>(t, n % T);
+}
+
+// Bit q set where p[q] != p[q - 1], for q in [0, 64); reads p[-1].
+inline uint64_t start_mask64(const uint8_t* p) {
+  constexpr uint64_t lo7 = 0x7f7f7f7f7f7f7f7full;
+  uint64_t m = 0;
+  for (int w = 0; w < 8; ++w) {
+    uint64_t x, y;
+    std::memcpy(&x, p + 8 * w, 8);
+    std::memcpy(&y, p + 8 * w - 1, 8);
+    uint64_t d = x ^ y;
+    uint64_t hi = (((d & lo7) + lo7) | d) & ~lo7;   // bit 8q+7: byte q != 0
+    // gather the eight bits 8q+7 into one byte (no two products overlap)
+    m |= (((hi >> 7) * 0x0102040810204080ull) >> 56) << (8 * w);
+  }
+  return m;
+}
+
+// f(p) for each p in [i, e) with bwt[p] != bwt[p - 1]; i >= 1.
+template <class F>
+inline void for_each_start(const uint8_t* bwt, int64_t i, int64_t e, F&& f) {
+  for (; i + 64 <= e; i += 64)
+    for (uint64_t m = start_mask64(bwt + i); m; m &= m - 1)
+      f(i + __builtin_ctzll(m));
+  for (; i < e; ++i)
+    if (bwt[i] != bwt[i - 1]) f(i);
+}
+
+// The first j in [i, e) with bwt[j] != c, else e.
+inline int64_t run_end(const uint8_t* bwt, int64_t i, int64_t e, uint8_t c) {
+  const uint64_t cc = c * 0x0101010101010101ull;
+  for (; i + 8 <= e; i += 8) {
+    uint64_t x;
+    std::memcpy(&x, bwt + i, 8);
+    if (x != cc) return i + (__builtin_ctzll(x ^ cc) >> 3);
+  }
+  while (i < e && bwt[i] == c) ++i;
+  return i;
+}
+
+// Run starts in [b, e).
+int64_t count_starts(const uint8_t* bwt, int64_t b, int64_t e) {
+  if (b >= e) return 0;
+  int64_t nr = 0, i = b;
+  if (i == 0) nr = i = 1;
+  for (; i + 64 <= e; i += 64) nr += __builtin_popcountll(start_mask64(bwt + i));
+  for (; i < e; ++i) nr += bwt[i] != bwt[i - 1];
+  return nr;
+}
+
+// The runs that start in [b, e) into syms/lens from slot k, the last one
+// followed past e until the symbol changes; adds each run's length to
+// cnt[its symbol].
+void fill_runs(const uint8_t* bwt, int64_t n, int64_t b, int64_t e,
+               int64_t k, uint8_t* syms, int64_t* lens, uint64_t* cnt) {
+  // positions that continue the chunk before's last run belong to it
+  int64_t start = b > 0 ? run_end(bwt, b, e, bwt[b - 1]) : b;
+  if (start >= e) return;
+  uint8_t c = bwt[start];
+  syms[k] = c;
+  for_each_start(bwt, start + 1, e, [&](int64_t p) {
+    lens[k++] = p - start;
+    cnt[c] += p - start;
+    syms[k] = c = bwt[p];
+    start = p;
+  });
+  int64_t end = run_end(bwt, e, n, c);
+  lens[k] = end - start;
+  cnt[c] += end - start;
+}
+
+// work(t) for t in [0, T): t > 0 each on a thread of its own, t == 0 and any
+// chunk whose thread cannot start on the caller's.  0, or -9 when memory
+// runs out.
+template <class F>
+int run_chunks(int T, F work) {
+  std::vector<std::thread> th;
+  try {
+    th.reserve(T - 1);
+  } catch (const std::bad_alloc&) {
+    return -9;
+  }
+  for (int t = 1; t < T; ++t) {
+    try {
+      th.emplace_back(work, t);
+    } catch (const std::exception&) {   // std::system_error, std::bad_alloc
+      work(t);
+    }
+  }
+  work(0);
+  for (auto& x : th) x.join();
+  return 0;
+}
+
 }  // namespace
 
 
@@ -599,35 +709,42 @@ int frld_encode_file(const int64_t* run_len, const uint8_t* run_sym,
   }
 }
 
-// Number of maximal runs in a BWT, so that the caller can size the
-// frle_from_bwt buffers exactly.
-int64_t frle_count(const uint8_t* bwt, int64_t n) {
-  if (n == 0) return 0;
-  int64_t nr = 1;
-  for (int64_t i = 1; i < n; ++i) nr += bwt[i] != bwt[i - 1];
-  return nr;
+// The runs of a BWT, first call: counts the run starts of each of n_threads
+// chunks on a thread each and writes chunk t's first output slot (the sum
+// of the counts before it) into first[t]. Returns the number of runs, or -9
+// when memory runs out.
+int64_t frle_count(const uint8_t* bwt, int64_t n, int n_threads,
+                   int64_t* first) {
+  const int T = n_threads < 1 ? 1 : n_threads;
+  int rc = run_chunks(T, [&](int t) {
+    first[t] = count_starts(bwt, rle_chunk_begin(n, T, t),
+                            rle_chunk_begin(n, T, t + 1));
+  });
+  if (rc != 0) return rc;
+  int64_t total = 0;
+  for (int t = 0; t < T; ++t) {
+    int64_t c = first[t];
+    first[t] = total;
+    total += c;
+  }
+  return total;
 }
 
-// The runs of a BWT as (symbol, length) into buffers of frle_count
-// entries; returns the run count.
-int64_t frle_from_bwt(const uint8_t* bwt, int64_t n, uint8_t* syms,
-                      int64_t* lens) {
-  if (n == 0) return 0;
-  int64_t nr = 0, l = 1;
-  uint8_t c = bwt[0];
-  for (int64_t i = 1; i < n; ++i) {
-    if (bwt[i] == c) {
-      ++l;
-    } else {
-      syms[nr] = c;
-      lens[nr++] = l;
-      c = bwt[i];
-      l = 1;
-    }
-  }
-  syms[nr] = c;
-  lens[nr++] = l;
-  return nr;
+// Second call, with the same n_threads and frle_count's first[]: writes the
+// runs as (symbol, length) into syms/lens of frle_count's size, and into
+// counts[t * asize + c] the summed lengths of chunk t's runs of symbol c
+// (symbols from asize up are not counted). 0, or -9 when memory runs out.
+int frle_fill(const uint8_t* bwt, int64_t n, int n_threads,
+              const int64_t* first, uint8_t* syms, int64_t* lens, int asize,
+              uint64_t* counts) {
+  const int T = n_threads < 1 ? 1 : n_threads;
+  const int a = std::min(asize, 256);
+  return run_chunks(T, [&](int t) {
+    uint64_t cnt[256] = {0};
+    fill_runs(bwt, n, rle_chunk_begin(n, T, t), rle_chunk_begin(n, T, t + 1),
+              first[t], syms, lens, cnt);
+    for (int c = 0; c < a; ++c) counts[(int64_t)t * asize + c] = cnt[c];
+  });
 }
 
 // Decodes a .fmd (RLD\2 or raw RLE-byte) file into malloc'd run arrays.

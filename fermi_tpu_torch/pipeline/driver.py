@@ -227,6 +227,7 @@ class Pipeline:
         del text
         with spans.span("rle") as rle_sp:
             runs = rld.Runs.from_bwt(bwt)
+        rle_threads = rld.rle_threads(bwt.size)
         del bwt
         with spans.span("dump") as dump_sp:
             rld.write_fmd(runs, out_fmd)
@@ -236,8 +237,10 @@ class Pipeline:
         BUILD_STATS.update(fragments=nfrag, symbols=n_sym, **{
             f"{k}_s": sp.seconds for k, sp in parts.items()})
         total = (dump_sp.end_ns - frags.start_ns) / 1e9
-        log("build", f"wrote {out_fmd} in {total:.1f}s (" + ", ".join(
-            f"{k} {sp.seconds:.1f}" for k, sp in parts.items()) + ")")
+        times = {k: f"{k} {sp.seconds:.1f}" for k, sp in parts.items()}
+        times["rle"] += f" x{rle_threads}"
+        log("build", f"wrote {out_fmd} in {total:.1f}s ("
+            + ", ".join(times.values()) + ")")
 
     def build_index(self, reads_iter, out_fmd, paths=None):
         """raw/ec FMD-index (the reference's `ropebwt -a bcr -N` stage):
