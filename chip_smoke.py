@@ -1609,6 +1609,34 @@ def write_bwt(bwt, path):
     return path
 
 
+@contextlib.contextmanager
+def part_peaks():
+    """algos/merge.py's part timer with torch's peak counter reset at each
+    part's start, so that each part's device peak is its own, as the
+    smoke prints them and [build_spans] holds them to their reckoning (the
+    program itself never resets the counter)."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    timer = mg._part_timer
+
+    def fresh_timer(device, *args):
+        part = timer(device, *args)
+
+        @contextlib.contextmanager
+        def fresh(name):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            with part(name):
+                yield
+        return fresh
+    mg._part_timer = fresh_timer
+    try:
+        yield
+    finally:
+        mg._part_timer = timer
+
+
 def timed(dev, fn):
     """fn() and its seconds, the device's work included, with the device's
     peak memory during the call."""
@@ -1707,8 +1735,9 @@ def build_spans_phase(workdir, res, dev):
         base = torch.cuda.memory_allocated()
         path = os.path.join(workdir, f"spans_{kind}.fmd")
         reset_launches()
-        secs, _, err = run_cli(["build", "--device", str(dev), "-fo", path,
-                                res["reads_fa"]])
+        with part_peaks():
+            secs, _, err = run_cli(["build", "--device", str(dev), "-fo",
+                                    path, res["reads_fa"]])
         counted = launches()
         del ballast
         torch.cuda.empty_cache()
@@ -3595,8 +3624,9 @@ def huge_phase(rng, wd, dev, block_a, genome, q_fa):
 
     # merge A B on the card, its parts timed by merge_files
     reset_launches()
-    secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo", big,
-                             fmd_a, fmd_b])[0]
+    with part_peaks():
+        secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo",
+                                 big, fmd_a, fmd_b])[0]
     for k, v in mg.FILE_STATS["seconds"].items():
         secs[f"merge_{k}"] = v
     for k, v in mg.FILE_STATS["device_peak"].items():
@@ -3837,9 +3867,10 @@ def append_phase(rng, wd, dev, big, idx, read_sets, genome):
     base = torch.cuda.memory_allocated()
     with spied(rld, "write_fmd") as written, \
             spied(mg, "fm_append_card") as appended:
-        secs["card"], _, err = run_cli(["build", "--device", str(dev),
-                                        "-fo", app["card"], "-i", big,
-                                        fq_c])
+        with part_peaks():
+            secs["card"], _, err = run_cli(["build", "--device", str(dev),
+                                            "-fo", app["card"], "-i", big,
+                                            fq_c])
     k1["card"] = launches()
     out["card_line"] = [ln for ln in err.splitlines()
                         if ln.startswith("[M::build]")]
@@ -3970,8 +4001,9 @@ def giant_phase(rng, wd, dev, big, q_fa, huge_text, huge_shape, unpack):
 
     reset_launches()
     torch.cuda.empty_cache()
-    secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo", giant,
-                             big, big])[0]
+    with part_peaks():
+        secs["merge"] = run_cli(["merge", "--device", str(dev), "-fo",
+                                 giant, big, big])[0]
     for k, v in mg.FILE_STATS["seconds"].items():
         secs[f"merge_{k}"] = v
     for k, v in mg.FILE_STATS["device_peak"].items():

@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from fermi_tpu_torch import native
+from fermi_tpu_torch import native, spans
 from fermi_tpu_torch.index.fmd import FMDIndex
 
 # Counters of the last compute_gap_bits, for measurement (the chip smoke
@@ -126,32 +126,48 @@ def merge_bwts(bwt0: torch.Tensor, bwt1: torch.Tensor, bits: torch.Tensor,
     return out
 
 
-def _part_timer(device, secs, peak):
+def _part_timer(device, secs, peak, span_names=None):
     """A context manager factory: `with part(name):` adds the block's
     seconds to secs[name] and, on CUDA, keeps in peak[name] the largest
-    device peak (bytes allocated) seen in a block of that name."""
+    device peak (bytes allocated) read at the end of a block of that name.
+    The peak counter is never reset here, so that reading is the highest
+    since the process or its caller last reset it.  With `span_names`, a
+    part is also the recorder's span span_names[name] (spans.py), opened
+    before the block and closed after its synchronisation, and secs adds
+    the span's seconds."""
     on_card = device.type == "cuda"
 
     @contextlib.contextmanager
     def part(name):
         if on_card:
             torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        yield
+        with (spans.span(span_names[name]) if span_names
+              else contextlib.nullcontext()) as sp:
+            t0 = time.perf_counter()
+            yield
+            if on_card:
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
         if on_card:
-            torch.cuda.synchronize(device)
             peak[name] = max(peak.get(name, 0),
                              torch.cuda.max_memory_allocated(device))
-        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        secs[name] = secs.get(name, 0.0) + (sp.seconds if sp else t1 - t0)
     return part
 
 
 # Seconds and device peaks (bytes, on CUDA) by part of the last merge_files
 # call, for measurement: the restores, gap walks, interleaves and rebuilds
-# of the running index summed over the folds, the host copy with the RLE,
-# and the dump.
+# of the running index summed over the folds, the merged BWT's copy to the
+# host, the RLE and the dump; each part's seconds are its span's.
 FILE_STATS = {"seconds": {}, "device_peak": {}}
+
+# merge_files' parts and the spans they open: under the root `merge`, the
+# RLE's and the writer's as the index build names them, so that their own
+# spans (rle/*, dump/*) nest under them.
+MERGE_SPANS = {"restore": "merge/restore", "rebuild": "merge/rebuild",
+               "gap_walk": "merge/gap_walk",
+               "interleave": "merge/interleave",
+               "download": "merge/download", "rle": "rle", "dump": "dump"}
 
 
 def merge_files(paths, out: str, device) -> None:
@@ -162,28 +178,32 @@ def merge_files(paths, out: str, device) -> None:
 
     secs, peak = {}, {}
     FILE_STATS.update(seconds=secs, device_peak=peak)
-    part = _part_timer(device, secs, peak)
-    with part("restore"):
-        e0 = FMDIndex.restore(paths[0], device)
-    bwt = e0.bwt()
-    for fn in paths[1:]:
-        if e0 is None:
-            with part("rebuild"):
-                e0 = FMDIndex._from_symbols(bwt)
-            bwt = e0.bwt()              # the index's blocks: one copy
+    part = _part_timer(device, secs, peak, MERGE_SPANS)
+    with spans.span("merge"):
         with part("restore"):
-            e1 = FMDIndex.restore(fn, device)
-        with part("gap_walk"):
-            bits = compute_gap_bits(e0, e1)
-        with part("merge_bwts"):
-            bwt = merge_bwts(bwt, e1.bwt(), bits)
-        e0 = e1 = bits = None           # freed before the next rebuild
-        sys.stderr.write(f"[M::merge] merged `{fn}'\n")
-    with part("rle"):
-        runs = rld.Runs.from_bwt(bwt.cpu().numpy())
-    del bwt
-    with part("dump"):
-        rld.write_fmd(runs, out)
+            e0 = FMDIndex.restore(paths[0], device)
+        bwt = e0.bwt()
+        for fn in paths[1:]:
+            if e0 is None:
+                with part("rebuild"):
+                    e0 = FMDIndex._from_symbols(bwt)
+                bwt = e0.bwt()          # the index's blocks: one copy
+            with part("restore"):
+                e1 = FMDIndex.restore(fn, device)
+            with part("gap_walk"):
+                bits = compute_gap_bits(e0, e1)
+            with part("interleave"):
+                bwt = merge_bwts(bwt, e1.bwt(), bits)
+            e0 = e1 = bits = None       # freed before the next rebuild
+            sys.stderr.write(f"[M::merge] merged `{fn}'\n")
+        with part("download"):
+            host = bwt.cpu().numpy()
+        del bwt
+        with part("rle"):
+            runs = rld.Runs.from_bwt(host)
+        del host
+        with part("dump"):
+            rld.write_fmd(runs, out)
 
 
 def fm_merge(e0: FMDIndex, bwt0: np.ndarray, e1: FMDIndex, bwt1: np.ndarray,

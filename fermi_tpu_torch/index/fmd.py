@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fermi_tpu_torch import resolve_device
+from fermi_tpu_torch import resolve_device, spans
 from fermi_tpu_torch.ops import rank_cuda
 
 BLOCK_BITS = 7
@@ -274,9 +274,14 @@ class FMDIndex:
 
     @staticmethod
     def restore(path: str, device=None) -> "FMDIndex":
+        """The index of a .fmd file on `device`: the native decoder's runs
+        (span `restore/decode`), then their layout (`restore/layout`)."""
         from fermi_tpu_torch import rld
         dev = resolve_device(device)
-        return FMDIndex.from_runs(rld.read_fmd(path), dev)
+        with spans.span("restore/decode"):
+            runs = rld.read_fmd(path)
+        with spans.span("restore/layout"):
+            return FMDIndex.from_runs(runs, dev)
 
     # -- properties --------------------------------------------------------
 

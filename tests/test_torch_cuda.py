@@ -873,6 +873,27 @@ def test_merge_with_self_unfused_card(card, tmp_path, monkeypatch):
     assert rank_cuda.LAUNCHES["rank6_fused"] == before["rank6_fused"]
 
 
+def test_merge_part_peaks_never_reset(two_samples, tmp_path):
+    """merge_files' part timer leaves torch's peak counter alone: each
+    part reads the device's peak so far, so the readings never fall, and
+    after the merge the process's peak is at least the largest of them
+    (the whole merge's, which a benchmark run reads)."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    _, ((_, f0, _), (_, f1, _)) = two_samples
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stderr(io.StringIO()):
+        mg.merge_files([f0, f1], str(tmp_path / "m.fmd"),
+                       torch.device("cuda"))
+    peaks = mg.FILE_STATS["device_peak"]
+    assert list(peaks) == ["restore", "gap_walk", "interleave", "download",
+                           "rle", "dump"]
+    assert list(peaks.values()) == sorted(peaks.values())
+    assert torch.cuda.max_memory_allocated() >= max(peaks.values()) > 0
+
+
 def test_build_append_routes_card(card, tmp_path, monkeypatch):
     """`build -i` on the card by both routes: with the free-byte figure
     below the card route's reckoned peak it streams (the block sorted on

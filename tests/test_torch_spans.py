@@ -267,3 +267,61 @@ def test_write_fmd_to_standard_output(tmp_path, capfdbinary):
     rld.write_fmd(runs, "-")
     assert capfdbinary.readouterr().out == open(a, "rb").read()
     assert [r.name for r in spans.rows()] == ["dump/encode", "dump/write"]
+
+
+# merge_files' parts under its root `merge`, in order, for n inputs
+def _merge_parts(n):
+    fold = ["merge/restore", "merge/gap_walk", "merge/interleave"]
+    return (["merge/restore"] + fold
+            + (["merge/rebuild"] + fold) * (n - 2)
+            + ["merge/download", "rle", "dump"])
+
+
+MERGE_KIDS = {"merge/restore": ["restore/decode", "restore/layout"],
+              "rle": ["rle/count", "rle/fill", "rle/mcnt"],
+              "dump": ["dump/encode", "dump/write"]}
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_merge_span_tree(tmp_path, n):
+    """merge_files opens `merge` with its parts in order, one restore an
+    input and a gap walk and an interleave a fold (a rebuild of the
+    running index before each fold past the first); each restore holds
+    the decoder's and the layout's spans, the RLE's and the writer's
+    their own; FILE_STATS' seconds are the parts' spans' seconds."""
+    from fermi_tpu_torch.algos import merge as mg
+
+    reads = random_reads(300 * n, min_len=60, max_len=101, seed=23,
+                         with_genome=True, genome_len=4000)
+    fmds = []
+    for i in range(n):
+        fq = str(tmp_path / f"r{i}.fq")
+        write_fastq(fq, reads[300 * i: 300 * (i + 1)])
+        fmds.append(str(tmp_path / f"r{i}.fmd"))
+        driver.Pipeline(str(tmp_path / f"x{i}"), device="cpu").build_index(
+            iter(()), fmds[-1], paths=[fq])
+    spans.clear()
+    mg.merge_files(fmds, str(tmp_path / "m.fmd"), torch.device("cpu"))
+    rows = spans.rows()
+    root, = [r for r in rows if r.name == "merge"]
+    assert root.parent is None
+    tree = _tree(rows, root)
+    kids = sorted((r for r in tree.values() if r.parent == root.index),
+                  key=lambda r: r.start_ns)
+    assert [r.name for r in kids] == _merge_parts(n)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+    for k in kids:
+        assert root.start_ns <= k.start_ns <= k.end_ns <= root.end_ns
+        under = sorted((r for r in tree.values() if r.parent == k.index),
+                       key=lambda r: r.start_ns)
+        assert [r.name for r in under] == MERGE_KIDS.get(k.name, [])
+        assert all(k.start_ns <= r.start_ns <= r.end_ns <= k.end_ns
+                   for r in under)
+    assert len(tree) == len(kids) + 1 + sum(
+        len(MERGE_KIDS.get(k.name, [])) for k in kids)
+    secs = mg.FILE_STATS["seconds"]
+    assert {mg.MERGE_SPANS[k] for k in secs} == set(_merge_parts(n))
+    for k, v in secs.items():
+        assert v == sum(r.seconds for r in kids
+                        if r.name == mg.MERGE_SPANS[k]), k
+    assert mg.FILE_STATS["device_peak"] == {}
